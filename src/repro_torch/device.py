@@ -20,7 +20,9 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None,
     Also turns TF32 off for float32 matmuls and cuDNN convolutions: cuDNN
     runs float32 convolutions in TF32 by default, which keeps about three
     decimal digits and would put the port out of reach of the reference's
-    float32 tolerances."""
+    float32 tolerances. And it turns off cuBLAS's reduced-precision
+    reductions in bf16 GEMMs (on by default), so a bf16 product sums in
+    float32 and rounds once, at the reference's rounding point."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -30,4 +32,5 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None,
         raise ValueError(f"unsupported device {dev}; expected cuda or cpu")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return dev

@@ -1,0 +1,204 @@
+"""The decoder stack of the LLM zoo, for `mixer="attention"` with
+`mlp="dense"`. Port of repro/models/transformer.py.
+
+Layer parameters are stacked (n_groups, scan_group, ...) as in the
+reference, so its parameters carry over as a plain copy (convert.py). A
+Python loop over the layers replaces the reference's `lax.scan` and remat
+(PyTorch runs eagerly; nothing here trains yet).
+
+The reference's other branches are not ported yet and raise
+NotImplementedError naming the ROADMAP item that ports them: the mamba1
+and mamba2 mixers, the MoE channel mixer, the zamba2 shared block, the
+modality prefix and an untied LM head. `loss_fn` waits for the training
+slice.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models.mlp import init_mlp, mlp_forward
+from repro_torch.models.norms import init_rms_norm, rms_norm
+from repro_torch.utils.tree import tree_map
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raises NotImplementedError for the parts of `cfg` the port does not
+    run yet."""
+    todo = []
+    if cfg.mixer == "mamba1":
+        todo.append("the mamba1 mixer (ROADMAP.md queue 1 item 15: "
+                    "models/mamba.py and the selective-scan kernel, the next "
+                    "slice)")
+    elif cfg.mixer != "attention":
+        todo.append(f"the {cfg.mixer} mixer (ROADMAP.md queue 1 item 15: "
+                    "models/mamba2.py)")
+    if cfg.mlp != "dense":
+        todo.append(f"the {cfg.mlp!r} channel mixer (ROADMAP.md queue 1 item "
+                    "15: models/moe.py)")
+    if cfg.shared_attn_every:
+        todo.append("the shared attention block (ROADMAP.md queue 1 item 15)")
+    if cfg.modality:
+        todo.append("the modality prefix (ROADMAP.md queue 1 item 15)")
+    if not cfg.tie_embeddings:
+        todo.append("an untied LM head (ROADMAP.md queue 1 item 15)")
+    if cfg.dtype not in _DTYPES:
+        todo.append(f"dtype {cfg.dtype!r}")
+    if todo:
+        raise NotImplementedError(
+            f"{cfg.name}: not yet ported to repro_torch: " + "; ".join(todo))
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+
+def _init_layer(cfg: ModelConfig, gen: torch.Generator) -> Dict:
+    return {
+        "ln1": init_rms_norm(cfg.d_model, device=gen.device),
+        "attn": attn.init_attention(gen, cfg.d_model, cfg.attention),
+        "ln2": init_rms_norm(cfg.d_model, device=gen.device),
+        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff),
+    }
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator, device=None) -> Dict:
+    """Random float32 parameters in the reference's layout, drawn from
+    `gen` on its device and moved to `device` (cuda unless "cpu" is asked
+    for). The values differ from the reference's (torch's generator is not
+    JAX's threefry); the shapes and tree equal its `init_params`."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    d = cfg.d_model
+    params: Dict = {
+        "embed": torch.randn((cfg.vocab_size, d), generator=gen,
+                             device=gen.device) * 0.02}
+    G, sg = cfg.n_scan_groups, cfg.scan_group
+    layers = [_init_layer(cfg, gen) for _ in range(G * sg)]
+    params["layers"] = tree_map(
+        lambda *xs: torch.stack(xs).unflatten(0, (G, sg)), *layers)
+    del layers
+    params["ln_f"] = init_rms_norm(d, device=gen.device)
+    return tree_map(lambda t: t.to(dev), params)
+
+
+# ---------------------------------------------------------------------------
+# Forward (full sequence)
+# ---------------------------------------------------------------------------
+
+
+def _layer(params: Dict, cfg: ModelConfig, idx: int) -> Dict:
+    """Layer `idx`'s parameters: a view of the stacked (G, sg, ...) leaves."""
+    g, i = divmod(idx, cfg.scan_group)
+    return tree_map(lambda t: t[g, i], params)
+
+
+def _layer_forward(cfg: ModelConfig, p: Dict, x, positions, impl: str):
+    """One block: pre-norm mixer + pre-norm channel-mixer, residuals."""
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    x = x + attn.attention_forward(p["attn"], h, cfg.attention, positions,
+                                   impl)
+    return x + mlp_forward(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps),
+                           cfg.act)
+
+
+def embed_inputs(cfg: ModelConfig, params: Dict, tokens):
+    """Token embedding. Returns (x, prefix_len): x (B, S, d) in cfg.dtype,
+    prefix_len 0 (no modality prefix)."""
+    return params["embed"][tokens].to(_DTYPES[cfg.dtype]), 0
+
+
+def compute_logits(cfg: ModelConfig, params: Dict, x):
+    """float32 logits against the tied embedding."""
+    xf = rms_norm(x, params["ln_f"], cfg.norm_eps).to(torch.float32)
+    return xf @ params["embed"].to(torch.float32).T
+
+
+def _positions(B: int, S: int, device) -> torch.Tensor:
+    return torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
+
+
+def forward(cfg: ModelConfig, params: Dict, tokens, impl: str = "plain",
+            ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Full-sequence forward. Returns (logits, aux_loss, prefix_len); the
+    aux loss (the MoE router's in the reference) is 0 for a dense model."""
+    check_supported(cfg)
+    x, prefix_len = embed_inputs(cfg, params, tokens)
+    positions = _positions(x.shape[0], x.shape[1], x.device)
+    for idx in range(cfg.n_layers):
+        x = _layer_forward(cfg, _layer(params["layers"], cfg, idx), x,
+                           positions, impl)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return compute_logits(cfg, params, x), aux, prefix_len
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill + decode with per-layer caches
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,
+               ) -> Dict:
+    """Stacked per-layer KV caches, leaves (G, sg, B, L, KV, hd) in bf16
+    on `device` (cuda unless "cpu" is asked for), and the next position
+    `pos` as a host int."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    one = attn.init_kv_cache(batch, max_len, cfg.attention, device="meta")
+    G, sg = cfg.n_scan_groups, cfg.scan_group
+    layers = {name: torch.zeros((G, sg, *t.shape), dtype=t.dtype, device=dev)
+              for name, t in one.items()}
+    return {"layers": layers, "pos": 0}
+
+
+def _layer_decode(cfg: ModelConfig, p: Dict, x, pos: int, layer_cache):
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    h, layer_cache = attn.attention_decode_step(p["attn"], h, cfg.attention,
+                                                pos, layer_cache)
+    x = x + h
+    x = x + mlp_forward(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps),
+                        cfg.act)
+    return x, layer_cache
+
+
+def decode_step(cfg: ModelConfig, params: Dict, cache: Dict, tokens,
+                ) -> Tuple[torch.Tensor, Dict]:
+    """One-token decode. tokens: (B, 1). Returns (logits (B, 1, V), cache):
+    the cache's tensors are updated in place and its `pos` advanced."""
+    check_supported(cfg)
+    x, _ = embed_inputs(cfg, params, tokens)
+    pos = cache["pos"]
+    for idx in range(cfg.n_layers):
+        x, _ = _layer_decode(cfg, _layer(params["layers"], cfg, idx), x, pos,
+                             _layer(cache["layers"], cfg, idx))
+    cache["pos"] = pos + 1
+    return compute_logits(cfg, params, x), cache
+
+
+def prefill(cfg: ModelConfig, params: Dict, tokens,
+            max_len: Optional[int] = None, impl: str = "plain",
+            ) -> Tuple[torch.Tensor, Dict]:
+    """Full-sequence forward that fills all caches. Returns (logits of the
+    last position (B, 1, V), cache)."""
+    check_supported(cfg)
+    x, _ = embed_inputs(cfg, params, tokens)
+    B, S = x.shape[:2]
+    positions = _positions(B, S, x.device)
+    cache = init_cache(cfg, B, max_len or S, device=x.device)
+    for idx in range(cfg.n_layers):
+        p = _layer(params["layers"], cfg, idx)
+        h, _ = attn.attention_prefill(
+            p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps), cfg.attention,
+            positions, _layer(cache["layers"], cfg, idx), impl)
+        x = x + h
+        x = x + mlp_forward(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps),
+                            cfg.act)
+    cache["pos"] = S
+    return compute_logits(cfg, params, x[:, -1:]), cache

@@ -1,0 +1,133 @@
+"""The port's flash attention (plain version and wrapper) against the JAX
+reference's contract.
+
+The reference's Pallas kernel does not run on the installed jax (its
+kernel.py calls `pl.load`, which jax 0.9 no longer has), so the port is
+held against the reference's oracle, `attention_ref`, and against the GQA
+contract of the reference's wrapper (ops.flash_attention: (B, S, H, hd)
+queries, (B, S, KV, hd) keys and values, each kv head repeated to its
+group with `jnp.repeat`), composed here from `attention_ref` exactly as
+ops.py composes it around the kernel.
+
+The same numpy inputs go to both packages (bf16 cases round the same
+float32 values to bf16 in both, to nearest even). Tolerances are those of
+the reference's tests/test_kernels_flash.py: atol 2e-6 in float32 (both
+sum in float32, in another order) and 2e-2 in bf16 (the float32 result
+rounded once to bf16 can land one bf16 ulp apart).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.ref import attention_ref as j_attention_ref
+from repro_torch.kernels.flash_attention import ops, ref
+
+ATOL = {"float32": 2e-6, "bfloat16": 2e-2}
+
+# name: (B, Sq, Sk, H, KV, hd, dtype, causal, window, q_offset)
+CASES = {
+    "s64_f32": (2, 64, 64, 4, 2, 64, "float32", True, None, 0),
+    "s128_f32": (2, 128, 128, 4, 2, 64, "float32", True, None, 0),
+    "s200_f32": (2, 200, 200, 4, 2, 64, "float32", True, None, 0),
+    "s384_f32": (1, 384, 384, 4, 2, 64, "float32", True, None, 0),
+    "s64_bf16": (2, 64, 64, 4, 2, 64, "bfloat16", True, None, 0),
+    "s128_bf16": (2, 128, 128, 4, 2, 64, "bfloat16", True, None, 0),
+    "s200_bf16": (2, 200, 200, 4, 2, 64, "bfloat16", True, None, 0),
+    "s384_bf16": (1, 384, 384, 4, 2, 64, "bfloat16", True, None, 0),
+    "window32": (1, 256, 256, 2, 1, 64, "float32", True, 32, 0),
+    "window128": (1, 384, 384, 2, 1, 64, "float32", True, 128, 0),
+    "window32_bf16": (1, 200, 200, 2, 1, 64, "bfloat16", True, 32, 0),
+    "hd32": (2, 128, 128, 4, 2, 32, "float32", True, None, 0),
+    "hd128": (2, 128, 128, 4, 2, 128, "float32", True, None, 0),
+    "gqa7_qwen2_heads": (1, 128, 128, 14, 2, 64, "bfloat16", True, None, 0),
+    "q_offset": (2, 64, 200, 4, 2, 64, "float32", True, None, 136),
+    "q_offset_window": (1, 64, 256, 2, 2, 64, "float32", True, 32, 100),
+    # Rows whose window holds no key (positions >= 40 - 1 + 32) give zeros.
+    "rows_without_keys": (1, 64, 40, 2, 1, 64, "float32", True, 32, 20),
+    "not_causal": (1, 100, 100, 2, 1, 32, "float32", False, None, 0),
+}
+
+
+def _inputs(name):
+    B, Sq, Sk, H, KV, hd, dtype, *_ = CASES[name]
+    rng = np.random.default_rng(len(name))
+    q = rng.normal(0, 1, (B, Sq, H, hd)).astype(np.float32)
+    k = rng.normal(0, 1, (B, Sk, KV, hd)).astype(np.float32)
+    v = rng.normal(0, 1, (B, Sk, KV, hd)).astype(np.float32)
+    return q, k, v
+
+
+def _j_gqa(q, k, v, causal, window, q_offset):
+    """ops.py's GQA contract around the reference's oracle."""
+    B, Sq, H, hd = q.shape
+    rep = H // k.shape[2]
+    qt = q.transpose(0, 2, 1, 3).reshape(B * H, Sq, hd)
+    kt = jnp.repeat(k.transpose(0, 2, 1, 3), rep, axis=1).reshape(B * H, -1, hd)
+    vt = jnp.repeat(v.transpose(0, 2, 1, 3), rep, axis=1).reshape(B * H, -1, hd)
+    out = j_attention_ref(qt, kt, vt, causal, window, q_offset)
+    return out.reshape(B, H, Sq, hd).transpose(0, 2, 1, 3)
+
+
+def _both(name):
+    """(port tensors, reference arrays) of the case's inputs."""
+    dtype = CASES[name][6]
+    arrs = _inputs(name)
+    t = [torch.tensor(a).to(getattr(torch, dtype)) for a in arrs]
+    j = [jnp.asarray(a).astype(getattr(jnp, dtype)) for a in arrs]
+    return t, j
+
+
+def _close(actual, desired, dtype):
+    np.testing.assert_allclose(actual.float().numpy(),
+                               np.asarray(desired, np.float32),
+                               rtol=0, atol=ATOL[dtype])
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_gqa_ref_matches_reference_contract(name):
+    *_, dtype, causal, window, q_offset = CASES[name]
+    (q, k, v), (jq, jk, jv) = _both(name)
+    out = ref.flash_attention_ref(q, k, v, causal, window, q_offset)
+    want = _j_gqa(jq, jk, jv, causal, window, q_offset)
+    assert out.dtype == q.dtype and out.shape == q.shape
+    _close(out, want, dtype)
+    if name == "rows_without_keys":
+        assert out[:, 51:].abs().max() == 0
+        assert (out[:, :51].abs().amax(dim=-1) > 0).all()
+
+
+@pytest.mark.parametrize("name", ["s200_f32", "s200_bf16", "q_offset_window",
+                                  "rows_without_keys"])
+def test_attention_ref_matches_reference_oracle(name):
+    """The (BH, S, hd) oracle itself: head 0 of each batch row."""
+    *_, dtype, causal, window, q_offset = CASES[name]
+    arrs = [a[:, :, 0] for a in _inputs(name)]
+    t = [torch.tensor(a).to(getattr(torch, dtype)) for a in arrs]
+    j = [jnp.asarray(a).astype(getattr(jnp, dtype)) for a in arrs]
+    out = ref.attention_ref(*t, causal, window, q_offset)
+    _close(out, j_attention_ref(*j, causal, window, q_offset), dtype)
+
+
+def test_wrapper_runs_plain_version_on_cpu_and_counts_no_launch():
+    (q, k, v), (jq, jk, jv) = _both("s200_bf16")
+    before = ops.launches
+    out = ops.flash_attention(q, k, v, causal=True, window=None)
+    assert ops.launches == before
+    assert torch.equal(out, ref.flash_attention_ref(q, k, v))
+    _close(out, _j_gqa(jq, jk, jv, True, None, 0), "bfloat16")
+
+
+def test_wrapper_refuses_other_devices_and_bad_arguments():
+    x = torch.zeros(1, 8, 2, 32, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        ops.flash_attention(x, x, x)
+    q = torch.zeros(1, 8, 3, 32)
+    kv = torch.zeros(1, 8, 2, 32)
+    with pytest.raises(ValueError, match="multiple of KV"):
+        ops.flash_attention(q, kv, kv)
+    q = torch.zeros(1, 8, 2, 32)
+    with pytest.raises(ValueError, match="window"):
+        ops.flash_attention(q, kv, kv, window=0)
+    with pytest.raises(TypeError, match="dtype"):
+        ops.flash_attention(q, kv.to(torch.bfloat16), kv)

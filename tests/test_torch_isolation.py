@@ -9,9 +9,13 @@ import pytest
 import torch
 
 import repro_torch
+from repro_torch.configs.registry import get_config
 from repro_torch.device import resolve_device
 from repro_torch.federated import experiment, simulation
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.quantize import ops
+from repro_torch.launch import serve
+from repro_torch.models import transformer as tfm
 
 PKG = pathlib.Path(repro_torch.__file__).resolve().parent
 MODULES = sorted(
@@ -53,9 +57,12 @@ def test_no_source_imports_jax_or_repro():
 
 def test_entry_points_default_to_cuda_and_never_fall_back():
     spec = experiment.get("mnist_smoke")
+    cfg = get_config("qwen2-0.5b", smoke=True)
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"
         assert spec.build().device.type == "cuda"
+        params = tfm.init_params(cfg, torch.Generator())
+        assert params["embed"].device.type == "cuda"
         return
     with pytest.raises(RuntimeError, match="device='cpu'"):
         resolve_device()
@@ -65,6 +72,13 @@ def test_entry_points_default_to_cuda_and_never_fall_back():
         spec.build()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         simulation.Simulator(None, {}, lambda s: [], [], spec.fed, None, None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tfm.init_params(cfg, torch.Generator())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--smoke", "--prompt-len", "8", "--gen", "2"])
+    params = tfm.init_params(cfg, torch.Generator(), device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.generate(cfg, params, torch.zeros(1, 8, dtype=torch.int64), 2)
     assert resolve_device("cpu").type == "cpu"
 
 
@@ -72,3 +86,9 @@ def test_quantize_refuses_other_devices():
     x = torch.zeros(4, 8, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         ops.quantize(x, x)
+
+
+def test_flash_attention_refuses_other_devices():
+    x = torch.zeros(1, 8, 2, 32, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fa_ops.flash_attention(x, x, x)

@@ -14,6 +14,8 @@ import torch
 
 from repro_torch.kernels.quantize import ops, ref
 
+pytestmark = pytest.mark.cuda
+
 SHAPES = {
     "rows_not_multiple_of_256": (300, 1024),
     "narrow_rows": (64, 128),
