@@ -11,30 +11,37 @@ Phases (each prints its own lines; any failure exits non-zero):
      timed, with their registers and spills;
   3. kernels: each kernel against its plain PyTorch version on the card,
      on several cases and at its main path's shapes (quantize: exact
-     equality; flash attention: atol 2e-6 in float32, 2e-2 in bf16), then
-     its time per launch beside the plain version's time, the card's
-     bound for the same work and, where one PyTorch call computes the same
-     function, that call's time;
+     equality; flash attention: atol 2e-6 in float32, 2e-2 in bf16;
+     selective scan: 3e-5 of max(1, max |plain|)), then its time per launch
+     beside the plain version's time, the card's bound for the same work
+     and, where one PyTorch call computes the same function, that call's
+     time;
   4. FL main path: the registered `mnist_paper` experiment with int8 uplink
      compression (the paper's MNIST CNN, M=10 clients), built on the card
      and run for 6 rounds in two chunks; the quantize kernel must have
-     launched on it once per round, losses must be finite and the uplink
-     bits exact; then 36 more rounds timed in steady state (12 chunks of 3,
-     no eval) and 3 under torch.profiler (device busy share, kernels by
-     device time);
+     launched on it once per round, and no other kernel; losses must be
+     finite and the uplink bits exact; then 36 more rounds timed in steady
+     state (12 chunks of 3, no eval) and 3 under torch.profiler (device
+     busy share, kernels by device time);
   5. FL reference: `mnist_smoke` with compression on the card and on the
      CPU (the CPU run takes the kernels' plain versions) from the same
      model and the same quantizer noise; the runs must agree;
   6. serve path: `qwen2-0.5b` at full width and depth (random weights from
      a seed), B=4 prompts of 2048 tokens, 32 generated tokens, through
      `serve.generate`; the flash kernel must launch once a layer in the
-     prefill (24) and never in decode, logits must be finite, and the
-     prefill's logits must agree with impl="plain" on the same weights;
-     prefill and decode tokens/s, the flash kernel's share of prefill
-     device time and the decode loop's device-busy share (torch.profiler);
+     prefill (24), never in decode, and no other kernel may launch; logits
+     must be finite, and the prefill's logits must agree with impl="plain"
+     on the same weights; prefill and decode tokens/s, the flash kernel's
+     share of prefill device time and the decode loop's device-busy share
+     (torch.profiler);
   7. serve reference: the `qwen2-0.5b` smoke config on the card and on the
      CPU from the same weights and prompts, in float32 and in bf16; the
-     runs must agree.
+     runs must agree;
+  8. serve path: `falcon-mamba-7b` at full width and depth (7.0e9 random
+     weights drawn on the card from a seed), the same shape and gates as
+     phase 6 with the selective-scan kernel in the flash kernel's place
+     (64 launches in the prefill, none in decode);
+  9. serve reference: as phase 7, for the `falcon-mamba-7b` smoke config.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}. The script exits non-zero
@@ -42,6 +49,7 @@ without a result when no CUDA card is available or the port's package
 is missing.
 """
 import dataclasses
+import gc
 import json
 import math
 import statistics
@@ -293,6 +301,100 @@ def phase_flash_kernel(dev, card):
             "library_ms": library_ms}
 
 
+# -- selective scan --------------------------------------------------------------
+
+# name: (B, S, D, N, chunk, h0). The reference's sweep
+# (tests/test_kernels_scan.py), a ragged D, S=1, a nonzero h0, and the serve
+# path's shape: falcon-mamba-7b's prefill scan.
+SCAN_CASES = {
+    "sweep_1x64x128_n8": (1, 64, 128, 8, 32, False),
+    "sweep_2x128x256_n16": (2, 128, 256, 16, 32, False),
+    "sweep_1x96x512_n16": (1, 96, 512, 16, 32, False),
+    "sweep_2x100x128_n8": (2, 100, 128, 8, 32, False),
+    "ragged_d200_n16": (2, 77, 200, 16, 32, False),
+    "s1_n8": (3, 1, 256, 8, 128, False),
+    "h0_n16": (2, 150, 384, 16, 64, True),
+    "h0_ragged_n8": (1, 45, 130, 8, 32, True),
+    "falcon_prefill_n16": (SERVE_BATCH, SERVE_PROMPT, 8192, 16, 128, False),
+}
+# The reference's own tolerance for its scans, scaled by max(1, max |plain|).
+SCAN_ATOL = 3e-5
+# The H100 SXM's special-function units: 16 results a clock an SM (exp2 is
+# one of them), 132 SMs, 1.98 GHz boost clock.
+SFU_PER_S = 16 * 132 * 1.98e9
+
+
+def scan_inputs(name, dev):
+    """x, dt, A, B, C, D and h0 (or None), distributed as the reference's
+    test inputs (tests/test_kernels_scan.py)."""
+    import torch
+    B, S, D, N, _, with_h0 = SCAN_CASES[name]
+    g = torch.Generator(device=dev).manual_seed(len(name))
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    x = randn(B, S, D)
+    dt = torch.nn.functional.softplus(randn(B, S, D)) * 0.2
+    A = -torch.exp(randn(D, N) * 0.3)
+    Bm, Cm = randn(B, S, N), randn(B, S, N)
+    Dskip = torch.linspace(0.5, 1.5, D, device=dev)
+    return x, dt, A, Bm, Cm, Dskip, (randn(B, D, N) * 0.5 if with_h0
+                                     else None)
+
+
+def phase_scan_kernel(dev, card):
+    import torch
+    from repro_torch.kernels.selective_scan import ops, ref
+    max_err = 0.0
+    for name, (B, S, D, N, chunk, _) in SCAN_CASES.items():
+        *args, h0 = scan_inputs(name, dev)
+        y, h = ops.selective_scan(*args, chunk=chunk, h0=h0)
+        torch.cuda.synchronize()
+        y_r, h_r = ref.selective_scan_ref(*args, chunk=chunk, h0=h0)
+        errs = []
+        for got, want in ((y, y_r), (h, h_r)):
+            err = float((got - want).abs().max())
+            scale = max(1.0, float(want.abs().max()))
+            errs.append((err, scale))
+            max_err = max(max_err, err)
+        print(f"[kernel] selective_scan {name} B={B} S={S} D={D} N={N} "
+              f"h0={h0 is not None}: max abs err y {errs[0][0]:.3g} (scale "
+              f"{errs[0][1]:.3g}), h {errs[1][0]:.3g} (scale "
+              f"{errs[1][1]:.3g}); atol {SCAN_ATOL:g} x scale", flush=True)
+        if not all(err <= SCAN_ATOL * scale for err, scale in errs):
+            raise SystemExit(f"selective scan kernel disagrees on {name}")
+    *args, _ = scan_inputs("falcon_prefill_n16", dev)
+    ms = time_ms(lambda: ops.selective_scan(*args))
+    plain_ms = time_ms(lambda: ref.selective_scan_ref(*args), warmup=2,
+                       calls=3, reps=5)
+    x, _, A, Bm, *_ = args
+    B, S, D = x.shape
+    N = A.shape[1]
+    # x, dt read and y written (float32), B and C read, A and D read, the
+    # final h written.
+    n_bytes = 4 * (3 * B * S * D + 2 * B * S * N + D * N + D + B * D * N)
+    # Per state element: dt*A, dA*h, (dt*x)*B, the add, h*C and its sum;
+    # per channel step: dt*x, D*x and its add. The exps are counted apart.
+    n_ops = 6 * B * S * D * N + 3 * B * S * D
+    n_exp = B * S * D * N
+    bound_ms, bound_by = bound(n_bytes, n_ops, FP32_OPS_PER_S)
+    sfu_ms = n_exp / SFU_PER_S * 1e3
+    print(f"[kernel] selective_scan B={B} S={S} D={D} N={N} on {card}: "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}: {n_bytes:,} bytes at 3.35 TB/s; "
+          f"{n_ops:.3g} FLOPs take {n_ops / FP32_OPS_PER_S * 1e3:.4f} ms at "
+          f"the float32 peak), {bound_ms / ms:.1%} of bound; the {n_exp:.3g} "
+          f"exps take {sfu_ms:.4f} ms on the special-function units",
+          flush=True)
+    return {"name": "selective_scan", "route": "cuda",
+            "source": ("src/repro_torch/kernels/selective_scan/csrc/"
+                       "selective_scan.cu"),
+            "replaces": "src/repro/kernels/selective_scan/kernel.py:24",
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
 # -- FL path -------------------------------------------------------------------
 
 
@@ -397,47 +499,74 @@ def phase_fl_reference():
         raise SystemExit("the card's run disagrees with the CPU reference")
 
 
-# -- serve path ------------------------------------------------------------------
+# -- serve paths -----------------------------------------------------------------
 
-# The kernel path keeps scores and probabilities in float32 where the plain
-# path rounds them to bf16 (the reference's rounding points); through 24
-# bf16 layers the prefill logits drift apart by about 2% of their largest
-# magnitude. Gate at 5%.
+# arch: (the kernel its prefill runs, a substring of that kernel's symbol in
+# the profiler, the device its weights are drawn on). qwen2-0.5b's 494M
+# weights come from a CPU generator as `serve.main` draws them;
+# falcon-mamba-7b's 7.0e9 from a CUDA generator on the card (a CPU draw of
+# 28 GB takes minutes), one layer at a time into the stacked leaves.
+SERVE_ARCHS = {
+    "qwen2-0.5b": ("flash_attention", "flash_fwd", "cpu"),
+    "falcon-mamba-7b": ("selective_scan", "selective_scan_fwd", "cuda"),
+}
+
+# Kernel vs plain prefill logits, as a share of the largest logit. qwen2:
+# the kernel keeps scores and probabilities in float32 where the plain path
+# rounds them to bf16 (the reference's rounding points); through 24 bf16
+# layers the logits drift apart by about 2%. falcon-mamba-7b: the two paths
+# differ only in the scan's float32 sum order, but where its y lands on the
+# other side of a bf16 rounding boundary the gate's input moves by a bf16
+# ulp, and that travels through 64 layers. Both gated at 5%.
 SERVE_LOGIT_TOL = 0.05
+# The same in float32, on prompts of 256 tokens: only the kernels' sum
+# orders differ (a few float32 ulps a layer). 1e-4 of the largest logit,
+# ten times the CPU tests' 1e-5 for 2 layers, for the 24 and 64 layers here.
+SERVE_F32_PROMPT, SERVE_F32_LOGIT_TOL = 256, 1e-4
 
 
-def phase_serve(counters):
+def phase_serve(counters, arch):
+    """`arch` at full width and depth through serve.generate; returns the
+    launches of every kernel in that generate."""
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.launch import serve
     from repro_torch.models import transformer as tfm
     from repro_torch.utils.tree import leaves
-    fa = counters["flash_attention"]
-    cfg = get_config("qwen2-0.5b")
+    kernel, symbol, gen_device = SERVE_ARCHS[arch]
+    ops = counters[kernel]
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = tfm.init_params(cfg, torch.Generator().manual_seed(0))
+    params = tfm.init_params(
+        cfg, torch.Generator(device=gen_device).manual_seed(0))
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in leaves(params))
+    mixer = (f"{cfg.attention.n_heads} heads / {cfg.attention.n_kv_heads} kv"
+             if cfg.mixer == "attention" else
+             f"mamba1 d_inner {cfg.ssm.expand * cfg.d_model} d_state "
+             f"{cfg.ssm.d_state}")
     print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}"
-          f", {cfg.attention.n_heads} heads / {cfg.attention.n_kv_heads} kv, "
-          f"vocab {cfg.vocab_size}, {n_params:,} parameters (float32, "
-          f"{cfg.dtype} compute), drawn in {time.perf_counter() - t0:.2f} s",
-          flush=True)
+          f", {mixer}, vocab {cfg.vocab_size}, {n_params:,} parameters "
+          f"(float32, {cfg.dtype} compute; param_count() "
+          f"{cfg.param_count()[0]:,}), drawn on {gen_device} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
     prompts = serve.make_prompts(cfg, SERVE_BATCH, SERVE_PROMPT, seed=0)
     serve.generate(cfg, params, prompts, 2)  # warm-up: cuBLAS, allocator
 
-    for ops in counters.values():
-        ops.launches = 0
+    for c in counters.values():
+        c.launches = 0
     res = serve.generate(cfg, params, prompts, SERVE_GEN)
-    launches = {name: ops.launches for name, ops in counters.items()}
+    launches = {name: c.launches for name, c in counters.items()}
     B, S = prompts.shape
     steps = SERVE_GEN - 1
-    print(f"[serve] generate B={B} prompt={S} gen={SERVE_GEN}: prefill "
-          f"{res.prefill_s:.4f} s ({B * S / res.prefill_s:.1f} tokens/s), "
-          f"decode {steps} steps in {res.decode_s:.4f} s "
+    print(f"[serve] {arch} generate B={B} prompt={S} gen={SERVE_GEN}: "
+          f"prefill {res.prefill_s:.4f} s ({B * S / res.prefill_s:.1f} "
+          f"tokens/s), decode {steps} steps in {res.decode_s:.4f} s "
           f"({B * steps / res.decode_s:.2f} tokens/s, "
-          f"{res.decode_s / steps * 1e3:.2f} ms a step), launches {launches}",
-          flush=True)
+          f"{res.decode_s / steps * 1e3:.2f} ms a step), launches {launches}"
+          f", peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     if tuple(res.tokens.shape) != (B, SERVE_GEN):
         raise SystemExit(f"generated {tuple(res.tokens.shape)} tokens")
     if not (int(res.tokens.min()) >= 0
@@ -447,30 +576,32 @@ def phase_serve(counters):
                     ("last decode", res.last_logits)):
         if not bool(torch.isfinite(t).all()):
             raise SystemExit(f"non-finite {name} logits")
-    if launches["flash_attention"] != cfg.n_layers:
-        raise SystemExit(f"expected {cfg.n_layers} flash launches in "
-                         f"generate, got {launches['flash_attention']}")
-    if launches["quantize"]:
-        raise SystemExit("the quantize kernel launched on the serve path")
+    if launches[kernel] != cfg.n_layers:
+        raise SystemExit(f"expected {cfg.n_layers} {kernel} launches in "
+                         f"generate, got {launches[kernel]}")
+    others = {k: n for k, n in launches.items() if k != kernel and n}
+    if others:
+        raise SystemExit(f"other kernels launched on the {arch} path: "
+                         f"{others}")
 
-    # The prefill alone, profiled: one flash launch a layer. Then decode
-    # steps from its cache, profiled: no flash launch.
-    fa.launches = 0
+    # The prefill alone, profiled: one kernel launch a layer. Then decode
+    # steps from its cache, profiled: no kernel launch.
+    ops.launches = 0
     (logits, cache), wall, busy, top = profiled(lambda: tfm.prefill(
         cfg, params, prompts.cuda(), max_len=S + SERVE_GEN, impl="kernel"))
-    prefill_launches = fa.launches
-    flash_s = sum(sec for name, sec in top if "flash_fwd" in name)
-    print(f"[serve] profiled prefill: wall {wall:.4f} s, device busy "
-          f"{busy:.4f} s ({busy / wall:.1%}), flash kernel {flash_s * 1e3:.3f}"
-          f" ms = {flash_s / busy:.1%} of device time over "
-          f"{prefill_launches} launches, profiler on", flush=True)
+    prefill_launches = ops.launches
+    kernel_s = sum(sec for name, sec in top if symbol in name)
+    print(f"[serve] {arch} profiled prefill: wall {wall:.4f} s, device busy "
+          f"{busy:.4f} s ({busy / wall:.1%}), {kernel} kernel "
+          f"{kernel_s * 1e3:.3f} ms = {kernel_s / busy:.1%} of device time "
+          f"over {prefill_launches} launches, profiler on", flush=True)
     for name, sec in top[:8]:
         print(f"[serve]   {sec * 1e3:9.3f} ms {sec / busy:6.1%}  {name[:90]}")
     if prefill_launches != cfg.n_layers:
-        raise SystemExit(f"expected {cfg.n_layers} flash launches a prefill, "
-                         f"got {prefill_launches}")
+        raise SystemExit(f"expected {cfg.n_layers} {kernel} launches a "
+                         f"prefill, got {prefill_launches}")
     tok = logits[:, -1].argmax(dim=-1).reshape(B, 1)
-    fa.launches = 0
+    ops.launches = 0
     n_steps = min(8, SERVE_GEN - 1)  # within the cache's max_len
 
     def decode_steps(tok=tok):
@@ -480,16 +611,17 @@ def phase_serve(counters):
         return tok
 
     _, wall, busy, top = profiled(decode_steps)
-    print(f"[serve] profiled {n_steps} decode steps: wall {wall:.4f} s, "
-          f"device busy {busy:.4f} s ({busy / wall:.1%}; idle "
-          f"{1 - busy / wall:.1%}), flash launches {fa.launches}, profiler "
-          "on", flush=True)
+    print(f"[serve] {arch} profiled {n_steps} decode steps: wall {wall:.4f} "
+          f"s, device busy {busy:.4f} s ({busy / wall:.1%}; idle "
+          f"{1 - busy / wall:.1%}), {kernel} launches {ops.launches}, "
+          "profiler on", flush=True)
     for name, sec in top[:5]:
         print(f"[serve]   {sec / n_steps * 1e3:9.3f} ms/step "
               f"{sec / busy:6.1%}  {name[:90]}")
-    if fa.launches:
-        raise SystemExit(f"decode launched the flash kernel {fa.launches} "
-                         "times")
+    if ops.launches:
+        raise SystemExit(f"decode launched the {kernel} kernel "
+                         f"{ops.launches} times")
+    del logits, cache
 
     # The kernel path against the plain path, same weights and prompts.
     plain = serve.generate(cfg, params, prompts, 1, impl="plain")
@@ -498,30 +630,52 @@ def phase_serve(counters):
     rel_l2 = float((res.prefill_logits - plain.prefill_logits).norm()
                    / plain.prefill_logits.norm())
     same_first = int((res.tokens[:, 0] == plain.tokens[:, 0]).sum())
-    print(f"[serve] prefill logits kernel vs plain: max abs gap {gap:.4g} "
-          f"of max |logit| {scale:.4g} ({gap / scale:.2%}; tol "
+    print(f"[serve] {arch} prefill logits kernel vs plain: max abs gap "
+          f"{gap:.4g} of max |logit| {scale:.4g} ({gap / scale:.2%}; tol "
           f"{SERVE_LOGIT_TOL:.0%}), relative L2 {rel_l2:.3g}, first token "
           f"equal in {same_first}/{B} rows; plain prefill "
           f"{plain.prefill_s:.4f} s", flush=True)
     if not gap <= SERVE_LOGIT_TOL * scale:
         raise SystemExit("kernel and plain prefill logits disagree")
+
+    # The same comparison in float32 (no bf16 rounding to amplify the sum
+    # order's ulps), on shorter prompts.
+    cfg32 = cfg.replace(dtype="float32")
+    short = prompts[:, :SERVE_F32_PROMPT]
+    got, want = (serve.generate(cfg32, params, short, 1, impl=impl)
+                 for impl in ("kernel", "plain"))
+    gap = float((got.prefill_logits - want.prefill_logits).abs().max())
+    scale = float(want.prefill_logits.abs().max())
+    print(f"[serve] {arch} float32 prefill logits kernel vs plain, prompt "
+          f"{SERVE_F32_PROMPT}: max abs gap {gap:.4g} of max |logit| "
+          f"{scale:.4g} ({gap / scale:.3g}; tol {SERVE_F32_LOGIT_TOL:g}), "
+          f"first token equal in "
+          f"{int((got.tokens == want.tokens).sum())}/{B} rows", flush=True)
+    if not gap <= SERVE_F32_LOGIT_TOL * scale:
+        raise SystemExit("kernel and plain float32 prefill logits disagree")
     return launches
 
 
-def phase_serve_reference():
-    """qwen2-0.5b's smoke config on the card and on the CPU (where the
-    flash wrapper runs its plain version), same weights and prompts.
-    Tolerances as tests/test_torch_transformer.py: float32 1e-5 of the
-    logits' scale (1e-4 after decode, through the bf16 cache) with tokens
-    identical; bf16 3e-2."""
+# arch: float32 (prefill, last decode) logit tolerances, as the CPU tests
+# (tests/test_torch_transformer.py, tests/test_torch_mamba.py) hold them:
+# 1e-5 of scale, 1e-4 after qwen2's decode through its bf16 KV cache
+# (falcon-mamba-7b's decode state is float32). bf16: 3e-2 for both.
+SERVE_REF_F32_TOL = {"qwen2-0.5b": (1e-5, 1e-4),
+                     "falcon-mamba-7b": (1e-5, 1e-5)}
+
+
+def phase_serve_reference(arch):
+    """`arch`'s smoke config on the card and on the CPU (where the kernels'
+    wrappers run their plain versions), same weights and prompts, in
+    float32 and in bf16; float32 greedy tokens identical."""
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.launch import serve
     from repro_torch.models import transformer as tfm
     from repro_torch.utils.tree import tree_map
-    for dtype, tol_first, tol_last in (("float32", 1e-5, 1e-4),
-                                       ("bfloat16", 3e-2, 3e-2)):
-        cfg = get_config("qwen2-0.5b", smoke=True).replace(dtype=dtype)
+    for dtype, (tol_first, tol_last) in (
+            ("float32", SERVE_REF_F32_TOL[arch]), ("bfloat16", (3e-2, 3e-2))):
+        cfg = get_config(arch, smoke=True).replace(dtype=dtype)
         cpu = tfm.init_params(cfg, torch.Generator().manual_seed(3),
                               device="cpu")
         gpu = tree_map(lambda t: t.cuda(), cpu)
@@ -536,12 +690,12 @@ def phase_serve_reference():
             scale = max(1.0, float(b.abs().max()))
             gaps.append(float((a - b).abs().max()) / scale)
             if not gaps[-1] <= tol:
-                raise SystemExit(f"serve {dtype} {field}: card and CPU "
-                                 f"differ by {gaps[-1]:.3g} of scale")
+                raise SystemExit(f"serve {arch} {dtype} {field}: card and "
+                                 f"CPU differ by {gaps[-1]:.3g} of scale")
         same = bool(torch.equal(out["cuda"].tokens.cpu(), out["cpu"].tokens))
-        print(f"[reference] qwen2-0.5b smoke {dtype} cuda vs cpu: prefill "
-              f"logit gap {gaps[0]:.3g}, last logit gap {gaps[1]:.3g} of "
-              f"scale, tokens identical: {same}", flush=True)
+        print(f"[reference] {arch} smoke {dtype} cuda vs cpu: prefill logit "
+              f"gap {gaps[0]:.3g}, last logit gap {gaps[1]:.3g} of scale, "
+              f"tokens identical: {same}", flush=True)
         if dtype == "float32" and not same:
             raise SystemExit("float32 greedy tokens differ, card vs CPU")
 
@@ -555,7 +709,9 @@ def main() -> int:
     from repro_torch.device import resolve_device
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.quantize import ops as q_ops
-    counters = {"quantize": q_ops, "flash_attention": fa_ops}
+    from repro_torch.kernels.selective_scan import ops as ss_ops
+    counters = {"quantize": q_ops, "flash_attention": fa_ops,
+                "selective_scan": ss_ops}
 
     # -- 1. device ---------------------------------------------------------
     card = card_line()
@@ -574,20 +730,32 @@ def main() -> int:
 
     # -- 3. kernels against their plain versions -----------------------------
     records = {"quantize": phase_quantize_kernel(dev, card),
-               "flash_attention": phase_flash_kernel(dev, card)}
+               "flash_attention": phase_flash_kernel(dev, card),
+               "selective_scan": phase_scan_kernel(dev, card)}
 
     # -- 4, 5. the FL path and its reference ---------------------------------
     fl_launches = phase_fl_main_path(counters)
-    if fl_launches["flash_attention"]:
-        raise SystemExit("the flash kernel launched on the FL path")
+    others = {k: n for k, n in fl_launches.items() if k != "quantize" and n}
+    if others:
+        raise SystemExit(f"other kernels launched on the FL path: {others}")
     phase_fl_reference()
 
-    # -- 6, 7. the serve path and its reference ------------------------------
-    serve_launches = phase_serve(counters)
-    phase_serve_reference()
+    # -- 6, 7. qwen2-0.5b serving and its reference --------------------------
+    qwen2_launches = phase_serve(counters, "qwen2-0.5b")
+    phase_serve_reference("qwen2-0.5b")
+    # Free qwen2's weights and caches before the 28 GB of falcon-mamba-7b.
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 8, 9. falcon-mamba-7b serving and its reference ---------------------
+    falcon_launches = phase_serve(counters, "falcon-mamba-7b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_serve_reference("falcon-mamba-7b")
 
     records["quantize"]["launches"] = fl_launches["quantize"]
-    records["flash_attention"]["launches"] = serve_launches["flash_attention"]
+    records["flash_attention"]["launches"] = qwen2_launches["flash_attention"]
+    records["selective_scan"]["launches"] = falcon_launches["selective_scan"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}

@@ -9,10 +9,10 @@ from __future__ import annotations
 
 from typing import Callable, Dict
 
-from repro_torch.configs import qwen2_0_5b
+from repro_torch.configs import falcon_mamba_7b, qwen2_0_5b
 from repro_torch.configs.base import ModelConfig
 
-_MODULES = [qwen2_0_5b]
+_MODULES = [qwen2_0_5b, falcon_mamba_7b]
 
 ARCH_IDS = [m.ARCH_ID for m in _MODULES]
 
@@ -20,8 +20,8 @@ ARCH_IDS = [m.ARCH_ID for m in _MODULES]
 # items, queue 1 item 15).
 NOT_YET_PORTED = (
     "qwen3-moe-30b-a3b", "gemma-7b", "zamba2-2.7b", "qwen3-32b",
-    "falcon-mamba-7b", "llama4-scout-17b-a16e", "moonshot-v1-16b-a3b",
-    "llava-next-34b", "musicgen-large",
+    "llama4-scout-17b-a16e", "moonshot-v1-16b-a3b", "llava-next-34b",
+    "musicgen-large",
 )
 
 _FULL: Dict[str, Callable[[], ModelConfig]] = {

@@ -1,0 +1,124 @@
+"""Wrapper of the CUDA selective-scan kernel (csrc/selective_scan.cu).
+
+`selective_scan` launches the kernel for CUDA tensors and counts the
+launch in `launches`; for CPU tensors it runs the plain version
+(ref.selective_scan_ref) and counts nothing. Any other device raises, and
+a failed build or launch raises: nothing gives way to the plain version.
+The kernel is built with nvcc at its first launch in the process
+(kernels/build.py).
+
+Unlike the reference's wrapper (repro/kernels/selective_scan/ops.py),
+nothing is padded and a nonzero `h0` goes to the kernel itself (the
+reference sends it to its oracle). B and C may be views with strided rows
+(the split of the x projection); only their last dim must be contiguous.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Callable, Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "selective_scan.cu"
+
+STATE_SIZES = (8, 16)
+
+# Kernel launches since the count was last set to 0.
+launches = 0
+
+_kernel = None  # (launcher, nvcc log) once built
+
+
+def load_kernel() -> Tuple[Callable, str]:
+    """(launcher, nvcc log): builds the kernel on first use; later calls
+    touch no file."""
+    global _kernel
+    if _kernel is None:
+        lib, log = build.load(SOURCE)
+        fn = lib.selective_scan_launch
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+                       + [ctypes.c_longlong] * 4 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _kernel = (fn, log)
+    return _kernel
+
+
+def _check(x, dt, A, B, C, D, h0) -> None:
+    if x.dim() != 3 or A.dim() != 2:
+        raise ValueError(f"selective_scan needs x (B, S, D) and A (D, N), got "
+                         f"{tuple(x.shape)} and {tuple(A.shape)}")
+    Bsz, S, Dm = x.shape
+    N = A.shape[1]
+    want = {"dt": (dt, (Bsz, S, Dm)), "A": (A, (Dm, N)),
+            "B": (B, (Bsz, S, N)), "C": (C, (Bsz, S, N)), "D": (D, (Dm,))}
+    if h0 is not None:
+        want["h0"] = (h0, (Bsz, Dm, N))
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"selective_scan: {name} has shape "
+                             f"{tuple(t.shape)}, expected {shape} for x "
+                             f"{tuple(x.shape)} and A {tuple(A.shape)}")
+    tensors = [x] + [t for t, _ in want.values()]
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError("selective_scan takes float32 inputs, got "
+                        f"{sorted({str(t.dtype) for t in tensors})}")
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("selective_scan inputs lie on "
+                         f"{sorted({str(t.device) for t in tensors})}")
+
+
+def selective_scan(
+    x: torch.Tensor,  # (B, S, D) fp32
+    dt: torch.Tensor,  # (B, S, D) fp32
+    A: torch.Tensor,  # (D, N) fp32
+    B: torch.Tensor,  # (B, S, N) fp32
+    C: torch.Tensor,  # (B, S, N) fp32
+    D: torch.Tensor,  # (D,) fp32
+    chunk: int = 128,
+    h0: Optional[torch.Tensor] = None,  # (B, D, N) fp32
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Same contract as ref.selective_scan_ref: (y (B, S, D) in x's dtype,
+    h_final (B, D, N) float32). `chunk` orders the plain version's sums; the
+    kernel takes it and ignores it."""
+    global launches
+    _check(x, dt, A, B, C, D, h0)
+    if x.device.type == "cpu":
+        return selective_scan_ref(x, dt, A, B, C, D, chunk=chunk, h0=h0)
+    if x.device.type != "cuda":
+        raise ValueError(f"selective_scan runs on cuda or cpu, not {x.device}")
+    Bsz, S, Dm = x.shape
+    N = A.shape[1]
+    if N not in STATE_SIZES:
+        raise ValueError(f"the CUDA scan kernel takes d_state in "
+                         f"{STATE_SIZES}, got {N}")
+    if min(Bsz, S, Dm) == 0:
+        raise ValueError(f"selective_scan needs nonempty inputs, got x "
+                         f"{tuple(x.shape)}")
+    if Bsz > 65535:
+        raise ValueError(f"the CUDA scan kernel takes B <= 65535, got {Bsz}")
+    dense = [x, dt, A, D] + ([h0] if h0 is not None else [])
+    if not all(t.is_contiguous() for t in dense):
+        raise ValueError("the CUDA scan kernel needs contiguous x, dt, A, D "
+                         "and h0")
+    if B.stride(2) != 1 or C.stride(2) != 1:
+        raise ValueError("the CUDA scan kernel needs B and C contiguous in "
+                         "their last dim")
+    launch, _ = load_kernel()
+    y = torch.empty_like(x)
+    h = torch.empty((Bsz, Dm, N), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = launch(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+                    C.data_ptr(), D.data_ptr(),
+                    None if h0 is None else h0.data_ptr(), y.data_ptr(),
+                    h.data_ptr(), Bsz, S, Dm, N, B.stride(0), B.stride(1),
+                    C.stride(0), C.stride(1), stream)
+    if rc != 0:
+        raise RuntimeError(f"selective scan kernel launch failed: "
+                           f"cudaError {rc}")
+    launches += 1
+    return y, h

@@ -1,16 +1,20 @@
 """Batched serving driver: prefill a batch of prompts, then decode tokens
-greedily step by step against the KV cache. Port of
+greedily step by step against the layers' caches. Port of
 repro/launch/serve.py for the archs the port serves
-(configs/registry.py).
+(configs/registry.py): qwen2-0.5b and falcon-mamba-7b.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
       --batch 4 --prompt-len 2048 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \
+      --batch 4 --prompt-len 2048 --gen 32
 
 Runs on the CUDA card unless `--device cpu` is given. The prefill goes
-through the hand-written flash-attention kernel (impl="kernel"); on CPU
-tensors the kernel's wrapper runs its plain version. The weights are
-random, drawn on the CPU from `--seed`, so every device serves the same
-model.
+through the hand-written kernels (impl="kernel"): flash attention for
+qwen2-0.5b, the selective scan for falcon-mamba-7b; on CPU tensors their
+wrappers run the plain versions. Decode is plain torch. The weights are
+random, drawn on the CPU from `--seed` one layer at a time, so every
+device serves the same model (falcon-mamba-7b's 7.0e9 float32 parameters
+take 28 GB on the card).
 """
 from __future__ import annotations
 

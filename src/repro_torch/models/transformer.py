@@ -1,5 +1,5 @@
-"""The decoder stack of the LLM zoo, for `mixer="attention"` with
-`mlp="dense"`. Port of repro/models/transformer.py.
+"""The decoder stack of the LLM zoo, for the attention and mamba1 mixers
+with a dense channel mixer or none. Port of repro/models/transformer.py.
 
 Layer parameters are stacked (n_groups, scan_group, ...) as in the
 reference, so its parameters carry over as a plain copy (convert.py). A
@@ -7,10 +7,9 @@ Python loop over the layers replaces the reference's `lax.scan` and remat
 (PyTorch runs eagerly; nothing here trains yet).
 
 The reference's other branches are not ported yet and raise
-NotImplementedError naming the ROADMAP item that ports them: the mamba1
-and mamba2 mixers, the MoE channel mixer, the zamba2 shared block, the
-modality prefix and an untied LM head. `loss_fn` waits for the training
-slice.
+NotImplementedError naming the ROADMAP item that ports them: the mamba2
+mixer, the MoE channel mixer, the zamba2 shared block, the modality
+prefix and an untied LM head. `loss_fn` waits for the training slice.
 """
 from __future__ import annotations
 
@@ -21,6 +20,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as m1
 from repro_torch.models.mlp import init_mlp, mlp_forward
 from repro_torch.models.norms import init_rms_norm, rms_norm
 from repro_torch.utils.tree import tree_map
@@ -32,14 +32,10 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raises NotImplementedError for the parts of `cfg` the port does not
     run yet."""
     todo = []
-    if cfg.mixer == "mamba1":
-        todo.append("the mamba1 mixer (ROADMAP.md queue 1 item 15: "
-                    "models/mamba.py and the selective-scan kernel, the next "
-                    "slice)")
-    elif cfg.mixer != "attention":
+    if cfg.mixer not in ("attention", "mamba1"):
         todo.append(f"the {cfg.mixer} mixer (ROADMAP.md queue 1 item 15: "
                     "models/mamba2.py)")
-    if cfg.mlp != "dense":
+    if cfg.mlp not in ("dense", "none"):
         todo.append(f"the {cfg.mlp!r} channel mixer (ROADMAP.md queue 1 item "
                     "15: models/moe.py)")
     if cfg.shared_attn_every:
@@ -61,32 +57,45 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def _init_layer(cfg: ModelConfig, gen: torch.Generator) -> Dict:
-    return {
-        "ln1": init_rms_norm(cfg.d_model, device=gen.device),
-        "attn": attn.init_attention(gen, cfg.d_model, cfg.attention),
-        "ln2": init_rms_norm(cfg.d_model, device=gen.device),
-        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff),
-    }
+    p: Dict = {"ln1": init_rms_norm(cfg.d_model, device=gen.device)}
+    if cfg.mixer == "attention":
+        p["attn"] = attn.init_attention(gen, cfg.d_model, cfg.attention)
+    else:
+        p["mamba"] = m1.init_mamba1(gen, cfg.d_model, cfg.ssm)
+    if cfg.mlp == "dense":
+        p["ln2"] = init_rms_norm(cfg.d_model, device=gen.device)
+        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff)
+    return p
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, device=None) -> Dict:
     """Random float32 parameters in the reference's layout, drawn from
     `gen` on its device and moved to `device` (cuda unless "cpu" is asked
     for). The values differ from the reference's (torch's generator is not
-    JAX's threefry); the shapes and tree equal its `init_params`."""
+    JAX's threefry); the shapes and tree equal its `init_params`.
+
+    Each stacked (G, sg, ...) layer leaf is allocated on `device` first and
+    the layers, drawn one at a time in order, are copied into their
+    slices: the draw holds one layer beside the model, never a second copy
+    of it (28 GB at falcon-mamba-7b's width)."""
     check_supported(cfg)
     dev = resolve_device(device)
     d = cfg.d_model
     params: Dict = {
-        "embed": torch.randn((cfg.vocab_size, d), generator=gen,
-                             device=gen.device) * 0.02}
+        "embed": (torch.randn((cfg.vocab_size, d), generator=gen,
+                              device=gen.device) * 0.02).to(dev)}
     G, sg = cfg.n_scan_groups, cfg.scan_group
-    layers = [_init_layer(cfg, gen) for _ in range(G * sg)]
-    params["layers"] = tree_map(
-        lambda *xs: torch.stack(xs).unflatten(0, (G, sg)), *layers)
-    del layers
-    params["ln_f"] = init_rms_norm(d, device=gen.device)
-    return tree_map(lambda t: t.to(dev), params)
+    for idx in range(G * sg):
+        layer = _init_layer(cfg, gen)
+        if idx == 0:
+            params["layers"] = tree_map(
+                lambda t: torch.empty((G, sg, *t.shape), dtype=t.dtype,
+                                      device=dev), layer)
+        tree_map(lambda dst, src: dst.copy_(src),
+                 _layer(params["layers"], cfg, idx), layer)
+        del layer
+    params["ln_f"] = init_rms_norm(d, device=dev)
+    return params
 
 
 # ---------------------------------------------------------------------------
@@ -103,10 +112,20 @@ def _layer(params: Dict, cfg: ModelConfig, idx: int) -> Dict:
 def _layer_forward(cfg: ModelConfig, p: Dict, x, positions, impl: str):
     """One block: pre-norm mixer + pre-norm channel-mixer, residuals."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    x = x + attn.attention_forward(p["attn"], h, cfg.attention, positions,
+    if cfg.mixer == "attention":
+        h = attn.attention_forward(p["attn"], h, cfg.attention, positions,
                                    impl)
-    return x + mlp_forward(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps),
-                           cfg.act)
+    else:
+        h = m1.mamba1_forward(p["mamba"], h, cfg.ssm, impl)
+    return _channel_mix(cfg, p, x + h)
+
+
+def _channel_mix(cfg: ModelConfig, p: Dict, x):
+    """The pre-norm dense MLP with its residual, or nothing (mlp="none")."""
+    if cfg.mlp == "dense":
+        x = x + mlp_forward(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps),
+                            cfg.act)
+    return x
 
 
 def embed_inputs(cfg: ModelConfig, params: Dict, tokens):
@@ -146,12 +165,19 @@ def forward(cfg: ModelConfig, params: Dict, tokens, impl: str = "plain",
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,
                ) -> Dict:
-    """Stacked per-layer KV caches, leaves (G, sg, B, L, KV, hd) in bf16
-    on `device` (cuda unless "cpu" is asked for), and the next position
-    `pos` as a host int."""
+    """Stacked per-layer caches on `device` (cuda unless "cpu" is asked
+    for), and the next position `pos` as a host int. Attention: KV leaves
+    (G, sg, B, L, KV, hd) in bf16. mamba1: the conv tail (G, sg, B,
+    d_conv - 1, d_in) and the state h (G, sg, B, d_in, N), both float32
+    (`max_len` is not read)."""
     check_supported(cfg)
     dev = resolve_device(device)
-    one = attn.init_kv_cache(batch, max_len, cfg.attention, device="meta")
+    if cfg.mixer == "attention":
+        one = attn.init_kv_cache(batch, max_len, cfg.attention,
+                                 device="meta")
+    else:
+        one = m1.init_mamba1_cache(batch, cfg.d_model, cfg.ssm,
+                                   device="meta")
     G, sg = cfg.n_scan_groups, cfg.scan_group
     layers = {name: torch.zeros((G, sg, *t.shape), dtype=t.dtype, device=dev)
               for name, t in one.items()}
@@ -160,12 +186,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,
 
 def _layer_decode(cfg: ModelConfig, p: Dict, x, pos: int, layer_cache):
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    h, layer_cache = attn.attention_decode_step(p["attn"], h, cfg.attention,
-                                                pos, layer_cache)
-    x = x + h
-    x = x + mlp_forward(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps),
-                        cfg.act)
-    return x, layer_cache
+    if cfg.mixer == "attention":
+        h, layer_cache = attn.attention_decode_step(
+            p["attn"], h, cfg.attention, pos, layer_cache)
+    else:
+        h, layer_cache = m1.mamba1_decode_step(p["mamba"], h, cfg.ssm,
+                                               layer_cache)
+    return _channel_mix(cfg, p, x + h), layer_cache
 
 
 def decode_step(cfg: ModelConfig, params: Dict, cache: Dict, tokens,
@@ -185,20 +212,32 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict, tokens,
 def prefill(cfg: ModelConfig, params: Dict, tokens,
             max_len: Optional[int] = None, impl: str = "plain",
             ) -> Tuple[torch.Tensor, Dict]:
-    """Full-sequence forward that fills all caches. Returns (logits of the
-    last position (B, 1, V), cache)."""
+    """Full-sequence forward that fills all caches (in place). Returns
+    (logits of the last position (B, 1, V), cache).
+
+    A mamba1 prompt needs at least d_conv - 1 tokens: a shorter one would
+    leave a conv tail that decode cannot use (the reference stores it all
+    the same), so it raises ValueError."""
     check_supported(cfg)
     x, _ = embed_inputs(cfg, params, tokens)
     B, S = x.shape[:2]
+    if cfg.mixer == "mamba1" and S < cfg.ssm.d_conv - 1:
+        raise ValueError(f"{cfg.name}: a prompt of {S} tokens is shorter "
+                         f"than d_conv - 1 = {cfg.ssm.d_conv - 1}")
     positions = _positions(B, S, x.device)
     cache = init_cache(cfg, B, max_len or S, device=x.device)
     for idx in range(cfg.n_layers):
         p = _layer(params["layers"], cfg, idx)
-        h, _ = attn.attention_prefill(
-            p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps), cfg.attention,
-            positions, _layer(cache["layers"], cfg, idx), impl)
-        x = x + h
-        x = x + mlp_forward(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps),
-                            cfg.act)
+        c = _layer(cache["layers"], cfg, idx)
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        if cfg.mixer == "attention":
+            h, _ = attn.attention_prefill(p["attn"], h, cfg.attention,
+                                          positions, c, impl)
+        else:
+            h, (conv_tail, hst) = m1.mamba1_forward(
+                p["mamba"], h, cfg.ssm, impl, return_state=True)
+            c["conv"].copy_(conv_tail)
+            c["h"].copy_(hst)
+        x = _channel_mix(cfg, p, x + h)
     cache["pos"] = S
     return compute_logits(cfg, params, x[:, -1:]), cache

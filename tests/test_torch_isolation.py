@@ -14,6 +14,7 @@ from repro_torch.device import resolve_device
 from repro_torch.federated import experiment, simulation
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.quantize import ops
+from repro_torch.kernels.selective_scan import ops as ss_ops
 from repro_torch.launch import serve
 from repro_torch.models import transformer as tfm
 
@@ -76,6 +77,9 @@ def test_entry_points_default_to_cuda_and_never_fall_back():
         tfm.init_params(cfg, torch.Generator())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--smoke", "--prompt-len", "8", "--gen", "2"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "falcon-mamba-7b", "--smoke", "--prompt-len",
+                    "8", "--gen", "2"])
     params = tfm.init_params(cfg, torch.Generator(), device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.generate(cfg, params, torch.zeros(1, 8, dtype=torch.int64), 2)
@@ -92,3 +96,11 @@ def test_flash_attention_refuses_other_devices():
     x = torch.zeros(1, 8, 2, 32, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         fa_ops.flash_attention(x, x, x)
+
+
+def test_selective_scan_refuses_other_devices():
+    x = torch.zeros(1, 8, 16, device="meta")
+    A = torch.zeros(16, 8, device="meta")
+    bc = torch.zeros(1, 8, 8, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        ss_ops.selective_scan(x, x, A, bc, bc, torch.zeros(16, device="meta"))

@@ -115,10 +115,10 @@ def test_registry_names_unported_archs_and_never_falls_back():
             registry.get_config(arch)
     with pytest.raises(KeyError, match="unknown arch"):
         registry.get_config("qwen2-0.6b")
-    mamba = j_registry.get_config("falcon-mamba-7b", smoke=True)
+    mamba = j_registry.get_config("zamba2-2.7b", smoke=True)
     t_mamba = registry.get_config(ARCH, smoke=True).replace(
-        mixer="mamba1", mlp="none", attention=None, ssm=mamba.ssm)
-    with pytest.raises(NotImplementedError, match="mamba1.*ROADMAP"):
+        mixer="mamba2", mlp="none", attention=None, ssm=mamba.ssm)
+    with pytest.raises(NotImplementedError, match="mamba2.*ROADMAP"):
         tfm.init_params(t_mamba, torch.Generator(), device="cpu")
 
 
