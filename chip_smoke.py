@@ -8,10 +8,14 @@ Phases (each prints its own lines; any failure exits non-zero):
      versions;
   2. build: every CUDA kernel of the port, compiled with nvcc from the
      sources in this checkout (one nvcc a source, all started together),
-     timed, with their registers and spills;
+     timed, with their registers and spills; then `cuobjdump -sass` of the
+     flash library counts the wgmma (HGMMA) and TMA-load (UTMALDG)
+     instructions of each bf16 instance (flash_fwd_sm90<hd>), and fails if
+     either count is 0;
   3. kernels: each kernel against its plain PyTorch version on the card,
      on several cases and at its main path's shapes (quantize: exact
-     equality; flash attention: atol 2e-6 in float32, 2e-2 in bf16;
+     equality; flash attention: atol 2e-6 in float32 (the CUDA-core
+     kernel), 2e-2 in bf16 (the wgmma + TMA kernel);
      selective scan: 3e-5 of max(1, max |plain|)), then its time per launch
      beside the plain version's time, the card's bound for the same work
      and, where one PyTorch call computes the same function, that call's
@@ -52,6 +56,7 @@ import dataclasses
 import gc
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -154,6 +159,34 @@ def phase_build(kernels):
                 print(f"[build]   {line.strip()[:150]}")
 
 
+def phase_flash_sass():
+    """The bf16 flash kernel's SASS: each instance (hd 32, 64, 128) must
+    hold wgmma (HGMMA) and TMA load (UTMALDG) instructions."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops
+    cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
+    res = subprocess.run(
+        [str(cuobjdump), "-sass", str(build.library_path(ops.SOURCE))],
+        capture_output=True, text=True, check=True, timeout=300)
+    counts, hd = {}, None
+    for line in res.stdout.splitlines():
+        if "Function :" in line:
+            m = re.search(r"flash_fwd_sm90ILi(\d+)E", line)
+            hd = int(m.group(1)) if m else None
+            if hd is not None:
+                counts[hd] = [0, 0]
+        elif hd is not None:
+            counts[hd][0] += "HGMMA" in line
+            counts[hd][1] += "UTMALDG" in line
+    for hd, (n_mma, n_tma) in sorted(counts.items()):
+        print(f"[build] flash_fwd_sm90<{hd}> (bf16) SASS: {n_mma} HGMMA, "
+              f"{n_tma} UTMALDG", flush=True)
+    if sorted(counts) != list(ops.HEAD_DIMS) or not all(
+            n_mma and n_tma for n_mma, n_tma in counts.values()):
+        raise SystemExit(f"the bf16 flash instances lack wgmma or TMA "
+                         f"instructions: {counts}")
+
+
 # -- quantize ----------------------------------------------------------------
 
 
@@ -240,6 +273,19 @@ FLASH_CASES = {
     "q_offset_bf16": (2, 64, 200, 14, 2, 64, "bfloat16", True, None, 136),
     "q_offset_window_f32": (1, 64, 256, 4, 2, 64, "float32", True, 32, 100),
     "rows_without_keys_f32": (1, 64, 40, 2, 1, 64, "float32", True, 32, 20),
+    # The wgmma + TMA kernel's edges: ragged S (TMA zero-fills the rows past
+    # S, the kernel masks them), Sq != Sk with q_offset and a window, rows
+    # without keys, no causal mask, the other head dims at S=2048.
+    "s77_bf16": (2, 77, 77, 14, 2, 64, "bfloat16", True, None, 0),
+    "s1_bf16": (2, 1, 1, 14, 2, 64, "bfloat16", True, None, 0),
+    "q_offset_window_bf16": (1, 100, 300, 4, 2, 64, "bfloat16", True, 64,
+                             200),
+    "rows_without_keys_bf16": (1, 64, 40, 2, 1, 64, "bfloat16", True, 32,
+                               20),
+    "not_causal_bf16": (1, 100, 130, 2, 1, 32, "bfloat16", False, 16, 0),
+    "hd32_s2048_bf16": (1, 2048, 2048, 14, 2, 32, "bfloat16", True, None, 0),
+    "hd128_s2048_bf16": (1, 2048, 2048, 14, 2, 128, "bfloat16", True, None,
+                         0),
     # The serve path's shape: qwen2-0.5b's prefill attention.
     "qwen2_prefill_bf16": (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 14, 2, 64,
                            "bfloat16", True, None, 0),
@@ -512,12 +558,13 @@ SERVE_ARCHS = {
 }
 
 # Kernel vs plain prefill logits, as a share of the largest logit. qwen2:
-# the kernel keeps scores and probabilities in float32 where the plain path
-# rounds them to bf16 (the reference's rounding points); through 24 bf16
-# layers the logits drift apart by about 2%. falcon-mamba-7b: the two paths
-# differ only in the scan's float32 sum order, but where its y lands on the
-# other side of a bf16 rounding boundary the gate's input moves by a bf16
-# ulp, and that travels through 64 layers. Both gated at 5%.
+# the kernel keeps the scores in float32 where the plain path rounds them
+# to bf16 (the reference's rounding points; both round P to bf16); through
+# 24 bf16 layers the logits drift apart by about 2%. falcon-mamba-7b: the
+# two paths differ only in the scan's float32 sum order, but where its y
+# lands on the other side of a bf16 rounding boundary the gate's input
+# moves by a bf16 ulp, and that travels through 64 layers. Both gated at
+# 5%.
 SERVE_LOGIT_TOL = 0.05
 # The same in float32, on prompts of 256 tokens: only the kernels' sum
 # orders differ (a few float32 ulps a layer). 1e-4 of the largest logit,
@@ -727,6 +774,7 @@ def main() -> int:
 
     # -- 2. build ------------------------------------------------------------
     phase_build(counters)
+    phase_flash_sass()
 
     # -- 3. kernels against their plain versions -----------------------------
     records = {"quantize": phase_quantize_kernel(dev, card),

@@ -12,13 +12,16 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.utils.tree import tree_map
 
 
-def to_torch(params: Any, device="cpu") -> Any:
-    """A tree of numpy arrays -> the same tree of tensors on `device`."""
-    return tree_map(
-        lambda x: torch.tensor(np.asarray(x), device=device), params)
+def to_torch(params: Any, device=None) -> Any:
+    """A tree of numpy arrays -> the same tree of tensors on `device`: the
+    CUDA card unless the caller asks for the CPU (device.resolve_device;
+    raises without a card)."""
+    dev = resolve_device(device)
+    return tree_map(lambda x: torch.tensor(np.asarray(x), device=dev), params)
 
 
 def to_numpy(params: Any) -> Any:

@@ -33,16 +33,23 @@ def nvcc_path() -> str:
     return str(path)
 
 
+def library_path(source: Path) -> Path:
+    """Where `source` is built: build/ beside its csrc/, named by a hash of
+    the source and the flags."""
+    source = Path(source).resolve()
+    digest = hashlib.sha256(
+        source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return source.parent.parent / "build" / f"lib{source.stem}-{digest}.so"
+
+
 def load(source: Path) -> Tuple[ctypes.CDLL, str]:
     """(library, compiler log) for `source`, compiling it unless this
     source was built before. Raises RuntimeError with nvcc's output when
     the build fails."""
     source = Path(source).resolve()
-    digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out_dir = source.parent.parent / "build"
+    lib_path = library_path(source)
+    out_dir = lib_path.parent
     out_dir.mkdir(exist_ok=True)
-    lib_path = out_dir / f"lib{source.stem}-{digest}.so"
     log = "cached build"
     if not lib_path.exists():
         # Build under a temporary name, then rename: a concurrent or

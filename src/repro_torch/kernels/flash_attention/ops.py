@@ -26,7 +26,11 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 
 HEAD_DIMS = (32, 64, 128)
+# float32 goes to the CUDA-core kernel, bfloat16 to the wgmma + TMA kernel.
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# The launcher returns this plus a CUresult when it cannot encode a tensor
+# map (kTensorMapError in the source).
+TENSOR_MAP_ERROR = 30000
 
 # Kernel launches since the count was last set to 0.
 launches = 0
@@ -109,7 +113,9 @@ def flash_attention(
                     _DTYPES[q.dtype], B, Sq, Sk, H, KV, hd, q_offset,
                     int(causal), window or 0, hd ** -0.5, stream)
     if rc != 0:
-        raise RuntimeError(f"flash attention kernel launch failed: "
-                           f"cudaError {rc}")
+        raise RuntimeError(
+            f"flash attention kernel launch failed: "
+            + (f"CUresult {rc - TENSOR_MAP_ERROR} encoding a TMA tensor map"
+               if rc >= TENSOR_MAP_ERROR else f"cudaError {rc}"))
     launches += 1
     return o

@@ -45,7 +45,7 @@ def test_cnn_matches_jax(model, jax_params):
     j_cfg = getattr(j_cnn, model)()
     t_cfg = getattr(t_cnn, model)()
     j_params = jax_params[model]
-    t_params = to_torch(jax.tree.map(np.asarray, j_params))
+    t_params = to_torch(jax.tree.map(np.asarray, j_params), device="cpu")
     rng = np.random.default_rng(0)
     x = rng.normal(0, 1, (2, 28, 28, 1)).astype(np.float32)
     y = np.array([3, 7], np.int32)
@@ -93,12 +93,12 @@ def test_sgd_matches_jax(momentum):
     grads = [jax.tree.map(lambda x: rng.normal(size=x.shape).astype(np.float32),
                           p0) for _ in range(3)]
     j_opt, t_opt = j_sgd(0.05, momentum), t_sgd(0.05, momentum)
-    jp, tp = jax.tree.map(jnp.asarray, p0), to_torch(p0)
+    jp, tp = jax.tree.map(jnp.asarray, p0), to_torch(p0, device="cpu")
     js, ts = j_opt.init(jp), t_opt.init(tp)
     for g in grads:
         ju, js = j_opt.update(jax.tree.map(jnp.asarray, g), js, jp)
         jp = jax.tree.map(lambda p, u: p + u, jp, ju)
-        tu, ts = t_opt.update(to_torch(g), ts, tp)
+        tu, ts = t_opt.update(to_torch(g, device="cpu"), ts, tp)
         tp = apply_updates(tp, tu)
     for t, j in zip(leaves(to_numpy(tp)) + leaves(to_numpy(ts)),
                     jax.tree.leaves(jp) + jax.tree.leaves(js)):

@@ -45,7 +45,7 @@ def test_compress_roundtrip_matches_jax_exactly():
     rows = comp_j["q"].shape[0]
     assert rows == t_comp.n_rows(d)
     u = torch.tensor(np.asarray(j_noise(key, (rows, t_comp.ROW))))
-    comp_t = t_comp.compress_update(to_torch(d), u)
+    comp_t = t_comp.compress_update(to_torch(d, device="cpu"), u)
     np.testing.assert_array_equal(comp_t["q"].numpy(), np.asarray(comp_j["q"]))
     np.testing.assert_array_equal(comp_t["scale"].numpy(),
                                   np.asarray(comp_j["scale"]))
@@ -66,7 +66,7 @@ def test_client_batched_roundtrip_matches_per_client_jax():
                                for k in keys]))
     rec_j = jax.vmap(lambda t, k: j_comp.decompress_update(
         j_comp.compress_update(t, k)))(jax.tree.map(jnp.asarray, d), keys)
-    comp_t = t_comp.compress_update(to_torch(d), u)
+    comp_t = t_comp.compress_update(to_torch(d, device="cpu"), u)
     assert comp_t["q"].shape == (C, rows, t_comp.ROW)
     _assert_trees_equal(to_numpy(t_comp.decompress_update(comp_t)), rec_j)
 

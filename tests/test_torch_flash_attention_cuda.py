@@ -8,7 +8,9 @@ reference's dependencies:
 Without a card the tests skip (the kernel has no CPU form; the plain
 version's parity with the reference is held in
 tests/test_torch_flash_attention.py). Tolerances as there: atol 2e-6 in
-float32, 2e-2 in bf16.
+float32, 2e-2 in bf16. float32 inputs go to the CUDA-core kernel, bf16
+inputs to the wgmma + TMA kernel (which rounds P to bf16 before the PV
+product, as the reference's plain path does).
 """
 import pytest
 import torch
@@ -35,6 +37,25 @@ CASES = {
     "gqa7_qwen2_heads_bf16": (2, 256, 256, 14, 2, 64, torch.bfloat16, True,
                               None, 0),
     "not_causal_f32": (1, 100, 130, 2, 1, 32, torch.float32, False, 16, 0),
+    # bf16 cases of the wgmma + TMA kernel: ragged S (TMA zero-fills the
+    # rows past S, the kernel masks them), Sq != Sk with q_offset, the
+    # window and the other head dims at S=2048, the qwen2 heads at B=4.
+    "s77_bf16": (2, 77, 77, 4, 2, 64, torch.bfloat16, True, None, 0),
+    "s1_bf16": (2, 1, 1, 4, 2, 64, torch.bfloat16, True, None, 0),
+    "q_offset_bf16": (2, 64, 200, 4, 2, 64, torch.bfloat16, True, None, 136),
+    "q_offset_window_bf16": (1, 100, 300, 4, 2, 64, torch.bfloat16, True, 64,
+                             200),
+    "rows_without_keys_bf16": (1, 64, 40, 2, 1, 64, torch.bfloat16, True, 32,
+                               20),
+    "not_causal_bf16": (1, 100, 130, 2, 1, 32, torch.bfloat16, False, 16, 0),
+    "window128_s2048_bf16": (1, 2048, 2048, 4, 2, 64, torch.bfloat16, True,
+                             128, 0),
+    "hd32_s2048_bf16": (1, 2048, 2048, 4, 2, 32, torch.bfloat16, True, None,
+                        0),
+    "hd128_s2048_bf16": (1, 2048, 2048, 4, 2, 128, torch.bfloat16, True,
+                         None, 0),
+    "qwen2_heads_b4_bf16": (4, 2048, 2048, 14, 2, 64, torch.bfloat16, True,
+                            None, 0),
 }
 
 
@@ -61,3 +82,21 @@ def test_cuda_kernel_matches_plain_version(cuda_device, name):
     assert out.dtype == dtype and out.shape == q.shape
     err = float((out.float() - want.float()).abs().max())
     assert err <= ATOL[dtype], err
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_bf16_kernel_agrees_with_float32_kernel(cuda_device, hd):
+    """The two kernels on the same bf16-representable inputs: the bf16
+    kernel (tensor cores, P rounded to bf16, bf16 output) within the bf16
+    tolerance of the float32 kernel (CUDA cores, float32 throughout)."""
+    g = torch.Generator().manual_seed(hd)
+    q, k, v = (torch.randn(shape, generator=g).to(torch.bfloat16)
+               .to(cuda_device)
+               for shape in ((2, 300, 4, hd), (2, 300, 2, hd), (2, 300, 2, hd)))
+    before = ops.launches
+    got = ops.flash_attention(q, k, v)
+    want = ops.flash_attention(q.float(), k.float(), v.float())
+    torch.cuda.synchronize()
+    assert ops.launches == before + 2
+    err = float((got.float() - want).abs().max())
+    assert err <= ATOL[torch.bfloat16], err

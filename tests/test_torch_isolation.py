@@ -5,10 +5,12 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 import repro_torch
+from repro_torch import convert
 from repro_torch.configs.registry import get_config
 from repro_torch.device import resolve_device
 from repro_torch.federated import experiment, simulation
@@ -84,6 +86,18 @@ def test_entry_points_default_to_cuda_and_never_fall_back():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.generate(cfg, params, torch.zeros(1, 8, dtype=torch.int64), 2)
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_to_torch_defaults_to_cuda_and_never_falls_back():
+    params = {"w": np.arange(6, dtype=np.float32).reshape(2, 3)}
+    if torch.cuda.is_available():
+        assert convert.to_torch(params)["w"].device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            convert.to_torch(params)
+    out = convert.to_torch(params, device="cpu")
+    assert out["w"].device.type == "cpu"
+    assert torch.equal(out["w"], torch.arange(6.0).reshape(2, 3))
 
 
 def test_quantize_refuses_other_devices():

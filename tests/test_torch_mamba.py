@@ -75,7 +75,7 @@ def j_params():
 
 @pytest.fixture(scope="module")
 def t_params(j_params):
-    return to_torch(jax.tree.map(np.asarray, j_params))
+    return to_torch(jax.tree.map(np.asarray, j_params), device="cpu")
 
 
 def _layer0(j_params, t_params):

@@ -58,7 +58,7 @@ def test_round_step_matches_jax(aggregation):
     t_step = t_rounds.build_round_step(
         lambda p, b: t_cnn.cnn_loss(t_cfg, p, b), t_sgd(LR), aggregation)
     t_p, _, t_loss = t_step(
-        to_torch(stacked), (),
+        to_torch(stacked, device="cpu"), (),
         {"x": torch.tensor(x), "y": torch.tensor(y, dtype=torch.int64)},
         torch.tensor(w), u)
 

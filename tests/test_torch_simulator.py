@@ -145,15 +145,17 @@ def test_round_codes_match_up_to_rare_flips(runs, record_property):
         lambda p, b: t_cnn.cnn_loss(t_cnn.mnist_cnn_small(), p, b),
         t_sgd(cfg.lr))
     t_new, _, t_loss = t_local(
-        to_torch(jax.tree.map(stack, params0)), (),
+        to_torch(jax.tree.map(stack, params0), device="cpu"), (),
         {"x": torch.tensor(x), "y": torch.tensor(y, dtype=torch.int64)})
     np.testing.assert_allclose(t_loss.numpy(), np.asarray(j_loss),
                                rtol=LOSS_RTOL)
     u = _jax_noise(fed.seed, C, t_comp.n_rows(params0), 1)[0]
     d_j = jax.tree.map(lambda n, o: np.asarray(n) - o[None], j_new, params0)
     d_t = jax.tree.map(lambda n, o: n.numpy() - o[None], t_new, params0)
-    q_j = t_comp.compress_update(to_torch(d_j), torch.tensor(u))["q"]
-    q_t = t_comp.compress_update(to_torch(d_t), torch.tensor(u))["q"]
+    q_j = t_comp.compress_update(to_torch(d_j, device="cpu"),
+                                  torch.tensor(u))["q"]
+    q_t = t_comp.compress_update(to_torch(d_t, device="cpu"),
+                                  torch.tensor(u))["q"]
     diff = (q_t.to(torch.int32) - q_j.to(torch.int32)).abs()
     flips = int((diff > 0).sum())
     record_property("int8_codes_differing", flips)

@@ -78,7 +78,7 @@ def j_params():
 
 @pytest.fixture(scope="module")
 def t_params(j_params):
-    return to_torch(jax.tree.map(np.asarray, j_params))
+    return to_torch(jax.tree.map(np.asarray, j_params), device="cpu")
 
 
 def _tokens(B, S, seed=0):
@@ -172,7 +172,7 @@ def _attn_layer(j_params, t_params, bias_seed=3):
     rng = np.random.default_rng(bias_seed)
     for name in ("bq", "bk", "bv"):
         pj[name] = rng.normal(0, 0.1, pj[name].shape).astype(np.float32)
-    return jax.tree.map(jnp.asarray, pj), to_torch(pj)
+    return jax.tree.map(jnp.asarray, pj), to_torch(pj, device="cpu")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
