@@ -8,8 +8,9 @@ Phases (each prints its own lines; any failure exits non-zero):
      versions;
   2. build: every CUDA kernel of the port, compiled with nvcc from the
      sources in this checkout (one nvcc a source, all started together),
-     timed, with their registers and spills; then `cuobjdump -sass` of the
-     flash library counts the wgmma (HGMMA) and TMA-load (UTMALDG)
+     timed, with their registers and spills, and fails if an instance of
+     the scan kernel (selective_scan_fwd<N>) spills; then `cuobjdump -sass`
+     of the flash library counts the wgmma (HGMMA) and TMA-load (UTMALDG)
      instructions of each bf16 instance (flash_fwd_sm90<hd>), and fails if
      either count is 0;
   3. kernels: each kernel against its plain PyTorch version on the card,
@@ -19,7 +20,9 @@ Phases (each prints its own lines; any failure exits non-zero):
      selective scan: 3e-5 of max(1, max |plain|)), then its time per launch
      beside the plain version's time, the card's bound for the same work
      and, where one PyTorch call computes the same function, that call's
-     time;
+     time; the scan also prints its resident warps an SM at the falcon
+     shape (at least 24, or the run fails) and its time for one prompt
+     (B=1);
   4. FL main path: the registered `mnist_paper` experiment with int8 uplink
      compression (the paper's MNIST CNN, M=10 clients), built on the card
      and run for 6 rounds in two chunks; the quantize kernel must have
@@ -157,6 +160,27 @@ def phase_build(kernels):
             if ("registers" in line or "spill" in line or "error" in line
                     or "Compiling entry" in line):
                 print(f"[build]   {line.strip()[:150]}")
+    return {name: log for name, (_, log) in built.items()}
+
+
+def phase_scan_spills(log):
+    """Every instance of the scan kernel (N = 8 and 16) must be in ptxas's
+    report with 0 bytes of spill stores and loads."""
+    from repro_torch.kernels.selective_scan import ops
+    spills, n = {}, None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            m = re.search(r"selective_scan_fwdILi(\d+)E", line)
+            n = int(m.group(1)) if m else None
+        elif n is not None and "spill stores" in line:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            spills[n] = int(m.group(1)) + int(m.group(2))
+            n = None
+    print(f"[build] selective_scan_fwd<N> spill bytes: {spills}", flush=True)
+    if sorted(spills) != list(ops.STATE_SIZES) or any(spills.values()):
+        raise SystemExit(f"the scan instances spill or are missing from "
+                         f"ptxas's report: {spills}")
 
 
 def phase_flash_sass():
@@ -350,8 +374,8 @@ def phase_flash_kernel(dev, card):
 # -- selective scan --------------------------------------------------------------
 
 # name: (B, S, D, N, chunk, h0). The reference's sweep
-# (tests/test_kernels_scan.py), a ragged D, S=1, a nonzero h0, and the serve
-# path's shape: falcon-mamba-7b's prefill scan.
+# (tests/test_kernels_scan.py), a ragged D, S=1, a nonzero h0, the serve
+# path's shape (falcon-mamba-7b's prefill scan) and one prompt of it alone.
 SCAN_CASES = {
     "sweep_1x64x128_n8": (1, 64, 128, 8, 32, False),
     "sweep_2x128x256_n16": (2, 128, 256, 16, 32, False),
@@ -362,7 +386,11 @@ SCAN_CASES = {
     "h0_n16": (2, 150, 384, 16, 64, True),
     "h0_ragged_n8": (1, 45, 130, 8, 32, True),
     "falcon_prefill_n16": (SERVE_BATCH, SERVE_PROMPT, 8192, 16, 128, False),
+    "falcon_prompt_1x2048x8192_n16": (1, SERVE_PROMPT, 8192, 16, 128, False),
 }
+# Resident warps an SM the scan must reach at the falcon shape (one thread a
+# channel held 7.8).
+SCAN_MIN_WARPS_PER_SM = 24
 # The reference's own tolerance for its scans, scaled by max(1, max |plain|).
 SCAN_ATOL = 3e-5
 # The H100 SXM's special-function units: 16 results a clock an SM (exp2 is
@@ -433,6 +461,19 @@ def phase_scan_kernel(dev, card):
           f"the float32 peak), {bound_ms / ms:.1%} of bound; the {n_exp:.3g} "
           f"exps take {sfu_ms:.4f} ms on the special-function units",
           flush=True)
+    blocks_per_sm, grid, warps = ops.occupancy(B, D, N)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    resident = min(blocks_per_sm, grid / n_sm) * warps
+    print(f"[kernel] selective_scan B={B} S={S} D={D} N={N}: {grid} blocks "
+          f"of {warps} warps on {n_sm} SMs, {blocks_per_sm} blocks an SM at "
+          f"most, {resident:.1f} resident warps an SM (gate "
+          f">= {SCAN_MIN_WARPS_PER_SM})", flush=True)
+    if resident < SCAN_MIN_WARPS_PER_SM:
+        raise SystemExit(f"the scan holds {resident:.1f} warps an SM")
+    *one, _ = scan_inputs("falcon_prompt_1x2048x8192_n16", dev)
+    one_ms = time_ms(lambda: ops.selective_scan(*one))
+    print(f"[kernel] selective_scan one prompt B=1 S={S} D={D} N={N} on "
+          f"{card}: kernel {one_ms:.4f} ms (B={B}: {ms:.4f} ms)", flush=True)
     return {"name": "selective_scan", "route": "cuda",
             "source": ("src/repro_torch/kernels/selective_scan/csrc/"
                        "selective_scan.cu"),
@@ -773,7 +814,8 @@ def main() -> int:
           flush=True)
 
     # -- 2. build ------------------------------------------------------------
-    phase_build(counters)
+    logs = phase_build(counters)
+    phase_scan_spills(logs["selective_scan"])
     phase_flash_sass()
 
     # -- 3. kernels against their plain versions -----------------------------

@@ -44,14 +44,18 @@ def library_path(source: Path) -> Path:
 
 def load(source: Path) -> Tuple[ctypes.CDLL, str]:
     """(library, compiler log) for `source`, compiling it unless this
-    source was built before. Raises RuntimeError with nvcc's output when
-    the build fails."""
+    source was built before (the log is then the one kept beside the
+    library). Raises RuntimeError with nvcc's output when the build
+    fails."""
     source = Path(source).resolve()
     lib_path = library_path(source)
+    log_path = lib_path.with_suffix(".log")
     out_dir = lib_path.parent
     out_dir.mkdir(exist_ok=True)
-    log = "cached build"
-    if not lib_path.exists():
+    if lib_path.exists():
+        log = (log_path.read_text() if log_path.exists()
+               else "cached build")
+    else:
         # Build under a temporary name, then rename: a concurrent or
         # interrupted build never leaves a half-written library behind.
         fd, tmp = tempfile.mkstemp(dir=out_dir, suffix=".so")
@@ -63,6 +67,7 @@ def load(source: Path) -> Tuple[ctypes.CDLL, str]:
             log = res.stdout + res.stderr
             if res.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {source}:\n{log}")
+            log_path.write_text(log)
             os.replace(tmp, lib_path)
         finally:
             if os.path.exists(tmp):

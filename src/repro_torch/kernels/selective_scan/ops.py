@@ -30,7 +30,7 @@ STATE_SIZES = (8, 16)
 # Kernel launches since the count was last set to 0.
 launches = 0
 
-_kernel = None  # (launcher, nvcc log) once built
+_kernel = None  # (launcher, nvcc log, occupancy query) once built
 
 
 def load_kernel() -> Tuple[Callable, str]:
@@ -43,8 +43,24 @@ def load_kernel() -> Tuple[Callable, str]:
         fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
                        + [ctypes.c_longlong] * 4 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _kernel = (fn, log)
-    return _kernel
+        occ = lib.selective_scan_occupancy
+        occ.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+        occ.restype = ctypes.c_int
+        _kernel = (fn, log, occ)
+    return _kernel[:2]
+
+
+def occupancy(Bsz: int, Dm: int, N: int) -> Tuple[int, int, int]:
+    """(blocks an SM can hold, blocks in the grid, warps a block) of the
+    kernel launched on Bsz x Dm channels with N states, on the current
+    card (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    load_kernel()
+    out = (ctypes.c_int * 3)()
+    rc = _kernel[2](Bsz, Dm, N, out)
+    if rc != 0:
+        raise RuntimeError(f"selective scan occupancy query failed: "
+                           f"cudaError {rc}")
+    return out[0], out[1], out[2]
 
 
 def _check(x, dt, A, B, C, D, h0) -> None:

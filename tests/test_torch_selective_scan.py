@@ -159,3 +159,109 @@ def test_wrapper_refuses_bad_dtype_device_and_shape():
         ops.selective_scan(x, dt, A, Bm, Cm, D, h0=torch.zeros(1, 32, 4))
     with pytest.raises(ValueError, match=r"x \(B, S, D\)"):
         ops.selective_scan(x[0], dt, A, Bm, Cm, D)
+
+
+# -- the Hopper kernel's algorithm, emulated on the CPU ------------------------
+
+# csrc/selective_scan.cu's kT (steps a tile), kChannels (channels a block) and
+# kLanes (lanes a channel).
+KT, BLOCK_CHANNELS, LANES = 32, 64, 4
+LOG2E = torch.tensor(1.4426950408889634, dtype=torch.float32)
+
+# name: (B, S, D, N, h0): the reference's sweep, a ragged D (and S=77, a
+# ragged last tile), nonzero h0 cases (one with a ragged D at N=8) and S=1.
+EMULATION_CASES = {
+    "sweep_1x64x128_n8": (1, 64, 128, 8, False),
+    "sweep_2x128x256_n16": (2, 128, 256, 16, False),
+    "sweep_1x96x512_n16": (1, 96, 512, 16, False),
+    "sweep_2x100x128_n8": (2, 100, 128, 8, False),
+    "ragged_d200_n16": (2, 77, 200, 16, False),
+    "h0_n16": (2, 150, 384, 16, True),
+    "h0_ragged_n8": (1, 45, 130, 8, True),
+    "s1_n8": (3, 1, 256, 8, False),
+}
+
+
+def _hopper_scan_emulation(x, dt, A, Bm, Cm, Dskip, h0=None, carry=True):
+    """selective_scan_fwd (csrc/selective_scan.cu) step by step, over all
+    (batch, channel) pairs at once: channels padded to whole blocks of 64
+    and rows to whole groups of 4 steps with zeros (the kernel zero-fills
+    both, and a zero row leaves h as it is), each channel's N states split
+    over 4 lanes of N/4 contiguous states, the sequence walked in tiles of
+    kT steps (the last one ragged) with h carried from tile to tile,
+    exp(dt * A) as exp2(dt * (A * log2 e)) in float32, each lane's partial
+    sum of h * C taken state by state, a group's 4 x 4 partials combined by
+    the reduce-scatter (lanes xor 1, then xor 2: lane s ends with step s's
+    sum, (p0 + p1) + (p2 + p3) over the lanes in the butterfly's order), D * x
+    added last. `carry=False` drops the carry across tiles: h restarts from
+    h0 at each tile. Returns (y (B, S, D), h (B, D, N)), float32."""
+    Bsz, S, Dm = x.shape
+    N = A.shape[1]
+    per_lane = N // LANES
+    pad_d = (-Dm) % BLOCK_CHANNELS
+    pad_s = (-S) % LANES
+    Dp, Sp = Dm + pad_d, S + pad_s
+
+    def padded(t, dim, pad):
+        shape = list(t.shape)
+        shape[dim] = pad
+        return torch.cat([t, torch.zeros(shape)], dim=dim)
+
+    x, dt = (padded(padded(t, 2, pad_d), 1, pad_s) for t in (x, dt))
+    Bm, Cm = padded(Bm, 1, pad_s), padded(Cm, 1, pad_s)
+    a2 = (padded(A, 0, pad_d) * LOG2E).reshape(Dp, LANES, per_lane)
+    skip = padded(Dskip, 0, pad_d)
+    start = (torch.zeros(Bsz, Dp, N) if h0 is None else padded(h0, 1, pad_d))
+    start = start.reshape(Bsz, Dp, LANES, per_lane)
+    h = start.clone()
+    y = torch.empty(Bsz, Sp, Dp)
+    for t0 in range(0, Sp, KT):
+        if not carry:
+            h = start.clone()
+        for g0 in range(t0, min(t0 + KT, Sp), LANES):
+            part = torch.zeros(Bsz, Dp, LANES, LANES)  # (lane, step)
+            for s in range(LANES):
+                t = g0 + s
+                xv = x[:, t, :, None, None]
+                dtv = dt[:, t, :, None, None]
+                bv = Bm[:, t].reshape(Bsz, 1, LANES, per_lane)
+                cv = Cm[:, t].reshape(Bsz, 1, LANES, per_lane)
+                h = torch.exp2(dtv * a2) * h + (dtv * xv) * bv
+                p = torch.zeros(Bsz, Dp, LANES)
+                for j in range(per_lane):
+                    p = h[..., j] * cv[..., j] + p
+                part[..., s] = p
+            sums = ((part[:, :, 0] + part[:, :, 1])
+                    + (part[:, :, 2] + part[:, :, 3]))  # (B, Dp, step)
+            y[:, g0:g0 + LANES] = (skip * x[:, g0:g0 + LANES]
+                                   + sums.transpose(1, 2))
+    return y[:, :S, :Dm], h[:, :Dm].reshape(Bsz, Dm, N)
+
+
+@pytest.mark.parametrize("name", sorted(EMULATION_CASES))
+def test_hopper_kernel_emulation_matches_reference(name):
+    B, S, D, N, with_h0 = EMULATION_CASES[name]
+    *args, h0 = _inputs(B, S, D, N, seed=len(name), h0=True)
+    h0 = h0 if with_h0 else None
+    y, h = _hopper_scan_emulation(
+        *_t(args), h0=None if h0 is None else torch.tensor(h0))
+    y_j, h_j = j_ref.selective_scan_sequential(
+        *_j(args), h0=None if h0 is None else jnp.asarray(h0))
+    assert y.shape == (B, S, D) and h.shape == (B, D, N)
+    _close(y, y_j)
+    _close(h, h_j)
+
+
+def test_hopper_kernel_emulation_without_tile_carry_fails():
+    """The emulation is sharp enough to see a lost carry: with h restarting
+    at each tile of 32 steps, it leaves the tolerance."""
+    args = _inputs(2, 128, 256, 16, seed=5)
+    y, h = _hopper_scan_emulation(*_t(args), carry=False)
+    y_j, h_j = j_ref.selective_scan_sequential(*_j(args))
+    with pytest.raises(AssertionError):
+        _close(y, y_j)
+    with pytest.raises(AssertionError):
+        _close(h, h_j)
+    y, h = _hopper_scan_emulation(*_t(args))
+    _close(y, y_j)
+    _close(h, h_j)

@@ -31,6 +31,7 @@ CASES = {
     "h0_n16": (2, 150, 384, 16, 64, True),
     "h0_ragged_n8": (1, 45, 130, 8, 32, True),
     "falcon_prefill_4x2048x8192_n16": (4, 2048, 8192, 16, 128, False),
+    "falcon_prompt_1x2048x8192_n16": (1, 2048, 8192, 16, 128, False),
 }
 
 
