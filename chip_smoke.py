@@ -14,9 +14,10 @@ Phases (each prints its own lines; any failure exits non-zero):
      instructions of each bf16 instance (flash_fwd_sm90<hd>), and fails if
      either count is 0;
   3. kernels: each kernel against its plain PyTorch version on the card,
-     on several cases and at its main path's shapes (quantize: exact
-     equality; flash attention: atol 2e-6 in float32 (the CUDA-core
-     kernel), 2e-2 in bf16 (the wgmma + TMA kernel);
+     on several cases and at its main paths' shapes (quantize: exact
+     equality, timed at the FL shapes of phases 4, 10 and 11; flash
+     attention: atol 2e-6 in float32 (the CUDA-core kernel), 2e-2 in bf16
+     (the wgmma + TMA kernel);
      selective scan: 3e-5 of max(1, max |plain|)), then its time per launch
      beside the plain version's time, the card's bound for the same work
      and, where one PyTorch call computes the same function, that call's
@@ -33,6 +34,23 @@ Phases (each prints its own lines; any failure exits non-zero):
   5. FL reference: `mnist_smoke` with compression on the card and on the
      CPU (the CPU run takes the kernels' plain versions) from the same
      model and the same quantizer noise; the runs must agree;
+ 10. FL at CIFAR width: the registered `cifar_paper` experiment with int8
+     compression (the paper's CIFAR CNN, 2,156,490 parameters, M=10, its
+     own plan), as phase 4: one quantize launch a round over 10 x 2,110
+     rows, exact uplink bits, steady state and a profiled window;
+ 11. the fleet: `run_fleet(seeds=range(4))` of compressed `mnist_paper` for
+     6 rounds must launch the quantize kernel once a round for all four
+     members (not four times); each member's clock, bits and rounds must
+     equal its run alone; its 6-round loss and params gaps are printed
+     beside those of one seed run alone twice and from a one-ulp nudge of
+     its initial model; each round of a member, from equal states, must
+     hold the member contract against a round alone (losses within 1e-5
+     relative, params within 5e-4), on two fleets of 4 seeds, with each
+     round's largest params gap printed beside that of a member fed
+     another member's noise; fleet s/round beside 4 x the s/round of one
+     run, and a profiled fleet window; then
+     `examples/quickstart_torch.py`'s main on the card through its fleet
+     summary (uncompressed: no kernel launches);
   6. serve path: `qwen2-0.5b` at full width and depth (random weights from
      a seed), B=4 prompts of 2048 tokens, 32 generated tokens, through
      `serve.generate`; the flash kernel must launch once a layer in the
@@ -50,8 +68,10 @@ Phases (each prints its own lines; any failure exits non-zero):
      (64 launches in the prefill, none in decode);
   9. serve reference: as phase 7, for the `falcon-mamba-7b` smoke config.
 
-The last lines are the kernels' JSON record, the card's name and power
-limit, and {"ok": true, "device": {...}}. The script exits non-zero
+Phases 10 and 11 run right after phase 5; quantize's `launches` in the
+JSON line are those of phases 4, 10 and 11. The last lines are the
+kernels' JSON record, the card's name and power limit, and
+{"ok": true, "device": {...}}. The script exits non-zero
 without a result when no CUDA card is available or the port's package
 is missing.
 """
@@ -74,6 +94,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
+
+# The FL phases' steady state: this many chunks of 3 rounds, each timed.
+STEADY_CHUNKS = 12
 
 # The serve path's shape: qwen2-0.5b, 4 prompts of 2048 tokens, 32 tokens
 # generated for each.
@@ -213,6 +236,9 @@ def phase_flash_sass():
 
 # -- quantize ----------------------------------------------------------------
 
+QUANTIZE_SHAPES = {"slice_16280x1024": 16280, "cifar_21100x1024": 21100,
+                   "fleet_65120x1024": 65120}
+
 
 def quantize_cases(dev):
     import torch
@@ -230,8 +256,11 @@ def quantize_cases(dev):
     bad = torch.randn(4, 1024, generator=g)
     bad[0, 3], bad[1, 10], bad[2, 0] = float("nan"), float("inf"), -float("inf")
     cases["non_finite_rows"] = bad
-    # The main path's shape: 10 clients x 1,628 rows of 1024 per round.
-    cases["slice_16280x1024"] = torch.randn(16280, 1024, generator=g) * 1e-3
+    # The FL paths' shapes, one launch a round: mnist_paper's 10 clients x
+    # 1,628 rows of 1024, cifar_paper's 10 x 2,110, and a fleet of 4
+    # mnist_paper runs, 4 x 10 x 1,628.
+    for name, rows in QUANTIZE_SHAPES.items():
+        cases[name] = torch.randn(rows, 1024, generator=g) * 1e-3
     return {k: v.to(dev) for k, v in cases.items()}
 
 
@@ -257,20 +286,25 @@ def phase_quantize_kernel(dev, card):
               f"{bad_q} code and {bad_s} scale mismatches", flush=True)
         if bad_q or bad_s:
             raise SystemExit(f"quantize kernel disagrees on {name}")
-    x = cases["slice_16280x1024"]
-    u = ref.stochastic_noise(torch.Generator(device=dev).manual_seed(1),
-                             x.shape)
-    ms = time_ms(lambda: ops.quantize(x, u))
-    plain_ms = time_ms(lambda: ref.quantize_ref(x, u))
-    R, D = x.shape
-    # x and u read once (float32), codes written once (int8), one scale a row
-    n_bytes = R * D * (4 + 4 + 1) + R * 4
-    n_ops = 7 * R * D  # abs, max, divide, add, floor, two-sided clamp
-    bound_ms, bound_by = bound(n_bytes, n_ops, FP32_OPS_PER_S)
-    print(f"[kernel] quantize {R}x{D} on {card}: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
-          f"{n_bytes / 1e6:.1f} MB), {bound_ms / ms:.1%} of bound",
-          flush=True)
+    timed = {}
+    for name in QUANTIZE_SHAPES:
+        x = cases[name]
+        u = ref.stochastic_noise(torch.Generator(device=dev).manual_seed(1),
+                                 x.shape)
+        ms = time_ms(lambda: ops.quantize(x, u))
+        plain_ms = time_ms(lambda: ref.quantize_ref(x, u))
+        R, D = x.shape
+        # x and u read once (float32), codes written once (int8), one scale
+        # a row
+        n_bytes = R * D * (4 + 4 + 1) + R * 4
+        n_ops = 7 * R * D  # abs, max, divide, add, floor, two-sided clamp
+        bound_ms, bound_by = bound(n_bytes, n_ops, FP32_OPS_PER_S)
+        print(f"[kernel] quantize {R}x{D} on {card}: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}:"
+              f" {n_bytes / 1e6:.1f} MB), {bound_ms / ms:.1%} of bound",
+              flush=True)
+        timed[name] = (ms, plain_ms, bound_ms, bound_by)
+    ms, plain_ms, bound_ms, bound_by = timed["slice_16280x1024"]
     return {"name": "quantize", "route": "cuda",
             "source": "src/repro_torch/kernels/quantize/csrc/quantize.cu",
             "replaces": "src/repro/kernels/quantize/kernel.py:17",
@@ -485,15 +519,29 @@ def phase_scan_kernel(dev, card):
 # -- FL path -------------------------------------------------------------------
 
 
-def phase_fl_main_path(counters):
-    import torch
-    from repro_torch.federated import compression, experiment
-    from repro_torch.utils.tree import leaves
-    spec = experiment.get("mnist_paper")
-    spec = spec.replace(fed=dataclasses.replace(spec.fed,
+def compressed_spec(name):
+    from repro_torch.federated import experiment
+    spec = experiment.get(name)
+    return spec.replace(fed=dataclasses.replace(spec.fed,
                                                 compress_updates=True))
+
+
+def phase_fl_main_path(counters, name="mnist_paper", tag="slice"):
+    """The registered spec `name` with int8 compression on the card (tag:
+    the lines' prefix); returns the launches of its 6 rounds."""
+    import torch
+    from repro_torch.federated import compression
+    from repro_torch.models import cnn
+    from repro_torch.utils.tree import leaves
+    spec = compressed_spec(name)
     plan = spec.resolve_plan()
-    print(f"[slice] plan: b*={plan.b} theta*={plan.theta:.4f} V={plan.V} "
+    n_params = sum(math.prod(s) for layer in
+                   cnn.param_shapes(spec.model_config()).values()
+                   for s in layer.values())
+    print(f"[{tag}] {name}: {spec.model} ({n_params:,} parameters), "
+          f"M={spec.fed.n_devices}, {spec.n_train} {spec.dataset} samples",
+          flush=True)
+    print(f"[{tag}] plan: b*={plan.b} theta*={plan.theta:.4f} V={plan.V} "
           f"H_pred={plan.H_pred:.2f} T_round={plan.T_round:.4f}s "
           f"overall_pred={plan.overall_pred:.2f}s", flush=True)
     sim = spec.build()
@@ -508,13 +556,13 @@ def phase_fl_main_path(counters):
     state, res = sim.run(state, max_rounds=6, eval_every=3)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = {name: ops.launches for name, ops in counters.items()}
+    launches = {k: ops.launches for k, ops in counters.items()}
     for r in res.history:
-        print(f"[slice] round {r.round}: sim_time={r.sim_time:.6f}s "
+        print(f"[{tag}] round {r.round}: sim_time={r.sim_time:.6f}s "
               f"train_loss={r.train_loss:.6f} uplink_bits={r.uplink_bits:.0f}"
               + (f" test_acc={r.test_acc:.4f}" if r.test_acc is not None
                  else ""))
-    print(f"[slice] {elapsed / len(res.history):.4f} s per round "
+    print(f"[{tag}] {elapsed / len(res.history):.4f} s per round "
           f"({len(res.history)} rounds, first-chunk warm-up included), "
           f"{rows} rows per client update, launches {launches}", flush=True)
     if launches["quantize"] != len(res.history):
@@ -527,28 +575,29 @@ def phase_fl_main_path(counters):
         raise SystemExit(f"uplink bits differ from {want_bits}")
     if not all(bool(torch.isfinite(p).all()) for p in leaves(res.params)):
         raise SystemExit("non-finite parameters after the main path")
-    # Steady state: 12 more chunks of 3 rounds, each timed alone on the
+    # Steady state: more chunks of 3 rounds, each timed alone on the
     # host's clock (a chunk ends in its loss fetch, so the device is done),
     # with no test eval inside the timed spans.
     per_round = []
-    for _ in range(12):
+    for _ in range(STEADY_CHUNKS):
         t0 = time.perf_counter()
         state, _ = sim.run_chunk(state, 3)
         per_round.append((time.perf_counter() - t0) / 3)
-    print(f"[slice] steady state: median {statistics.median(per_round)!r} s "
-          f"per round, min {min(per_round)!r}, max {max(per_round)!r} (12 "
-          f"chunks of 3 rounds, no eval; host-bound, varies by machine)",
+    print(f"[{tag}] steady state: median {statistics.median(per_round)!r} s "
+          f"per round, min {min(per_round)!r}, max {max(per_round)!r} "
+          f"({STEADY_CHUNKS} chunks of 3 rounds, no eval; host-bound, varies "
+          "by machine)",
           flush=True)
     _, wall, busy, top = profiled(
         lambda: sim.run(state, max_rounds=3, eval_every=3))
-    print(f"[slice] profiled 3 rounds: wall {wall:.4f} s, device busy "
+    print(f"[{tag}] profiled 3 rounds: wall {wall:.4f} s, device busy "
           f"{busy:.4f} s ({busy / wall:.1%}; idle {1 - busy / wall:.1%}), "
           "profiler on", flush=True)
-    for name, sec in top[:8]:
-        print(f"[slice]   {sec / 3 * 1e3:9.3f} ms/round {sec / busy:6.1%}  "
-              f"{name[:90]}")
-    q_sec = sum(sec for name, sec in top if "quantize_rows" in name)
-    print(f"[slice]   quantize kernel: {q_sec / 3 * 1e3:.3f} ms/round, "
+    for kname, sec in top[:8]:
+        print(f"[{tag}]   {sec / 3 * 1e3:9.3f} ms/round {sec / busy:6.1%}  "
+              f"{kname[:90]}")
+    q_sec = sum(sec for kname, sec in top if "quantize_rows" in kname)
+    print(f"[{tag}]   quantize kernel: {q_sec / 3 * 1e3:.3f} ms/round, "
           f"{q_sec / busy:.1%} of device time", flush=True)
     return launches
 
@@ -584,6 +633,186 @@ def phase_fl_reference():
     # order, plus one quantizer step for a flipped stochastic-rounding code.
     if worst_loss > 1e-5 or worst_param > 5e-4:
         raise SystemExit("the card's run disagrees with the CPU reference")
+
+
+# The fleet's members and the bounds a member's round holds against a round
+# of it alone from the same state (Simulator.run_fleet's member contract;
+# tests/test_torch_simulator.py's LOSS_RTOL and PARAM_ATOL). The contract is
+# read on two fleets of 4: the phase's fleet and CONTRACT_SEEDS.
+FLEET_SEEDS, CONTRACT_SEEDS = range(4), range(4, 8)
+FLEET_LOSS_RTOL, FLEET_PARAM_ATOL = 1e-5, 5e-4
+
+
+def _gaps(a, b):
+    """(clock, bits and rounds equal, max relative train-loss gap, max
+    param gap, bit-identical) of two SimResults."""
+    from repro_torch.utils.tree import leaves
+    exact = len(a.history) == len(b.history) and all(
+        (x.round, x.sim_time, x.T_cm, x.T_cp, x.uplink_bits)
+        == (y.round, y.sim_time, y.T_cm, y.T_cp, y.uplink_bits)
+        for x, y in zip(a.history, b.history))
+    loss = max(abs(x.train_loss - y.train_loss) / abs(y.train_loss)
+               for x, y in zip(a.history, b.history))
+    pa, pb = leaves(a.params), leaves(b.params)
+    param = max(float((x - y).abs().max()) for x, y in zip(pa, pb))
+    same = loss == 0 and all(bool((x == y).all()) for x, y in zip(pa, pb))
+    return exact, loss, param, same
+
+
+def _ulp_nudged(state, seed):
+    """`state` with every weight times 1 - 2^-23, 1 or 1 + 2^-23 (drawn
+    from a CPU generator at `seed`; every client row alike)."""
+    import torch
+    from repro_torch.utils.tree import tree_map
+    gen = torch.Generator().manual_seed(seed)
+    return dataclasses.replace(state, params_C=tree_map(
+        lambda x: x * (1 + torch.randint(-1, 2, x.shape[1:], generator=gen)
+                       .to(x.device, x.dtype) * 2.0 ** -23), state.params_C))
+
+
+def _member_contract(sim, seeds, rounds):
+    """Each round of a fleet of `seeds`, from equal states, against one
+    round of each member alone; fails on a round that breaks the contract.
+    Returns the largest loss gap, and per round the largest param gap of
+    the members and that of the first member fed the second's noise."""
+    states = [sim.init(s) for s in seeds]
+    worst_loss, member, wrong_noise = 0.0, [], []
+    for _ in range(rounds):
+        step = sim.run_fleet(states=states, max_rounds=1)
+        member.append(0.0)
+        for st, res in zip(states, step.results):
+            _, solo = sim.run(st, max_rounds=1)
+            exact, loss, param, _ = _gaps(res, solo)
+            worst_loss, member[-1] = max(worst_loss, loss), max(member[-1],
+                                                                param)
+            if not (exact and loss <= FLEET_LOSS_RTOL
+                    and param <= FLEET_PARAM_ATOL):
+                raise SystemExit(
+                    f"fleet round {res.history[0].round} of seed {st.seed} "
+                    f"breaks the member contract: exact {exact}, loss gap "
+                    f"{loss:.3g}, param gap {param:.3g}")
+        _, solo = sim.run(states[0], max_rounds=1)
+        _, other = sim.run(dataclasses.replace(states[0], rng=states[1].rng),
+                           max_rounds=1)
+        wrong_noise.append(_gaps(other, solo)[2])
+        states = step.states
+    return worst_loss, member, wrong_noise
+
+
+def phase_fl_fleet(counters):
+    """run_fleet of compressed mnist_paper (4 seeds, 6 rounds): one quantize
+    launch a round for the whole fleet, exact clocks and bits, each member's
+    every round within the contract of a round alone from the same state
+    (8 seeds); then fleet s/round beside 4 x solo s/round."""
+    import torch
+    spec = compressed_spec("mnist_paper")
+    sim = spec.build()
+    S = len(FLEET_SEEDS)
+    for ops in counters.values():
+        ops.launches = 0
+    t0 = time.perf_counter()
+    fleet = sim.run_fleet(seeds=FLEET_SEEDS, max_rounds=6, eval_every=3)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {name: ops.launches for name, ops in counters.items()}
+    rounds = len(fleet.results[0].history)
+    print(f"[fleet] run_fleet(seeds=range({S})) of compressed mnist_paper: "
+          f"{rounds} rounds in {elapsed:.4f} s (warm-up included), launches "
+          f"{launches}, summary {fleet.summary()}", flush=True)
+    if launches["quantize"] != rounds:
+        raise SystemExit(f"expected one quantize launch a fleet round, got "
+                         f"{launches['quantize']} in {rounds} rounds")
+    # Whole histories: clocks, bits and rounds exact. The losses and params
+    # are printed beside two runs alone of one seed and a run of it from a
+    # one-ulp nudge of its initial model: the dynamics amplify a float32
+    # ulp, and cuDNN's default algorithms do not repeat a run alone bit for
+    # bit, so 6-round histories are not held to the round bounds.
+    _, again = sim.run(sim.init(FLEET_SEEDS[0]), max_rounds=6, eval_every=3)
+    _, nudged = sim.run(_ulp_nudged(sim.init(FLEET_SEEDS[0]), 1),
+                        max_rounds=6, eval_every=3)
+    for s, res in zip(FLEET_SEEDS, fleet.results):
+        _, solo = sim.run(sim.init(s), max_rounds=6, eval_every=3)
+        exact, loss, param, same = _gaps(res, solo)
+        print(f"[fleet] member {s} vs its run alone, 6 rounds: clock/bits/"
+              f"rounds exact {exact}, max rel loss gap {loss:.3g}, max param "
+              f"gap {param:.3g}, bit-identical {same}", flush=True)
+        if s == FLEET_SEEDS[0]:
+            for what, other in (("run twice", again),
+                                ("from a one-ulp nudge", nudged)):
+                _, loss2, param2, same2 = _gaps(other, solo)
+                print(f"[fleet] seed {s} alone, {what}, 6 rounds: max rel "
+                      f"loss gap {loss2:.3g}, max param gap {param2:.3g}, "
+                      f"bit-identical {same2}", flush=True)
+        if not (exact and all(math.isfinite(r.train_loss)
+                              for r in res.history)):
+            raise SystemExit(f"fleet member {s}: clock, bits or rounds "
+                             "differ from its run alone")
+    # The member contract, round by round, on 8 seeds; beside each round's
+    # largest member gap, what a member fed another member's noise reads.
+    for seeds in (FLEET_SEEDS, CONTRACT_SEEDS):
+        loss, member, wrong = _member_contract(sim, seeds, rounds)
+        print(f"[fleet] member contract, seeds {list(seeds)}, {rounds} rounds "
+              f"from equal states: max rel loss gap {loss:.3g} (tol "
+              f"{FLEET_LOSS_RTOL:g}); largest param gap a round "
+              f"{[float(f'{g:.3g}') for g in member]} (tol "
+              f"{FLEET_PARAM_ATOL:g}; at most {max(member) / FLEET_PARAM_ATOL:.1%}"
+              f" of it); seed {seeds[0]} fed seed {seeds[1]}'s noise "
+              f"{[float(f'{g:.3g}') for g in wrong]}; clock, bits and rounds "
+              "exact", flush=True)
+    # Steady state, no eval: fleet chunks of 3 rounds, each timed alone on
+    # the host's clock, beside as many chunks of one member run alone.
+    timing = spec.replace(with_eval=False).build()
+    states, fleet_s = fleet.states, []
+    for _ in range(STEADY_CHUNKS):
+        t0 = time.perf_counter()
+        states = timing.run_fleet(states=states, max_rounds=3,
+                                  eval_every=3).states
+        fleet_s.append((time.perf_counter() - t0) / 3)
+    state, solo_s = fleet.states[0], []
+    for _ in range(STEADY_CHUNKS):
+        t0 = time.perf_counter()
+        state, _ = timing.run_chunk(state, 3)
+        solo_s.append((time.perf_counter() - t0) / 3)
+    f_med, s_med = statistics.median(fleet_s), statistics.median(solo_s)
+    print(f"[fleet] steady state: fleet of {S} median {f_med!r} s per round "
+          f"(min {min(fleet_s)!r}, max {max(fleet_s)!r}); one run alone "
+          f"median {s_med!r} s per round (min {min(solo_s)!r}, max "
+          f"{max(solo_s)!r}); {S} x alone {S * s_med!r} s; fleet / ({S} x "
+          f"alone) {f_med / (S * s_med):.3f} ({STEADY_CHUNKS} chunks of 3 "
+          "rounds each, no eval)", flush=True)
+    _, wall, busy, top = profiled(lambda: timing.run_fleet(
+        states=states, max_rounds=3, eval_every=3))
+    print(f"[fleet] profiled 3 fleet rounds: wall {wall:.4f} s, device busy "
+          f"{busy:.4f} s ({busy / wall:.1%}; idle {1 - busy / wall:.1%}), "
+          "profiler on", flush=True)
+    for kname, sec in top[:8]:
+        print(f"[fleet]   {sec / 3 * 1e3:9.3f} ms/round {sec / busy:6.1%}  "
+              f"{kname[:90]}")
+    return launches
+
+
+def phase_quickstart(counters):
+    """examples/quickstart_torch.py's main on the card, through its fleet
+    summary (uncompressed: no kernel of the port launches)."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / "examples" / "quickstart_torch.py"
+    spec = importlib.util.spec_from_file_location("quickstart_torch", path)
+    quickstart = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(quickstart)
+    for ops in counters.values():
+        ops.launches = 0
+    t0 = time.perf_counter()
+    res, fleet = quickstart.main(device="cuda")
+    launches = {name: ops.launches for name, ops in counters.items()}
+    summary = fleet.summary()
+    print(f"[quickstart] examples/quickstart_torch.py main(device='cuda') in "
+          f"{time.perf_counter() - t0:.2f} s, launches {launches}", flush=True)
+    if any(launches.values()):
+        raise SystemExit(f"kernels launched on the uncompressed quickstart: "
+                         f"{launches}")
+    if not (len(res.history) == 5 and len(fleet) == 4
+            and all(math.isfinite(v) for v in summary.values())):
+        raise SystemExit(f"the quickstart twin did not finish: {summary}")
 
 
 # -- serve paths -----------------------------------------------------------------
@@ -824,11 +1053,18 @@ def main() -> int:
                "selective_scan": phase_scan_kernel(dev, card)}
 
     # -- 4, 5. the FL path and its reference ---------------------------------
-    fl_launches = phase_fl_main_path(counters)
-    others = {k: n for k, n in fl_launches.items() if k != "quantize" and n}
-    if others:
-        raise SystemExit(f"other kernels launched on the FL path: {others}")
+    fl_launches = [phase_fl_main_path(counters)]
     phase_fl_reference()
+
+    # -- 10, 11. cifar_paper; the fleet and the quickstart twin --------------
+    fl_launches.append(phase_fl_main_path(counters, "cifar_paper", "cifar"))
+    fl_launches.append(phase_fl_fleet(counters))
+    phase_quickstart(counters)
+    for launches in fl_launches:
+        others = {k: n for k, n in launches.items() if k != "quantize" and n}
+        if others:
+            raise SystemExit(f"other kernels launched on the FL path: "
+                             f"{others}")
 
     # -- 6, 7. qwen2-0.5b serving and its reference --------------------------
     qwen2_launches = phase_serve(counters, "qwen2-0.5b")
@@ -843,7 +1079,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_serve_reference("falcon-mamba-7b")
 
-    records["quantize"]["launches"] = fl_launches["quantize"]
+    records["quantize"]["launches"] = sum(n["quantize"] for n in fl_launches)
     records["flash_attention"]["launches"] = qwen2_launches["flash_attention"]
     records["selective_scan"]["launches"] = falcon_launches["selective_scan"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -3,15 +3,18 @@
 Ties together the delay models (core/delay.py) and the KKT solution
 (core/kkt.py) into an executable federated training plan: the optimized
 (b*, theta*, V*) plus the predicted round/overall times. Copy of
-`make_plan` and `plan_to_fedconfig` of repro/core/defl.py for the dense,
-fully participating population (the deadline and asynchronous planners
-serve parts of the reference the port has not taken up yet).
+`make_plan`, `plan_to_fedconfig` and `fixed_plan` of repro/core/defl.py
+for the dense, fully participating population (participation, cohorts,
+and the batched, deadline and asynchronous planners serve parts of the
+reference the port has not taken up yet).
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
 from typing import Optional
+
+import numpy as np
 
 from repro_torch.configs.base import FedConfig, WirelessConfig
 from repro_torch.core import delay, kkt
@@ -39,12 +42,22 @@ def make_plan(
     pop: delay.DevicePopulation,
     update_bits: float,
     wireless: Optional[WirelessConfig] = None,
+    method: str = "closed_form",
 ) -> DEFLPlan:
-    """Solve the paper's optimization for a device population (the Eq. 29
-    closed form, quantized to a power-of-two batch).
+    """Solve the paper's optimization for a device population: the KKT
+    problem solved by `kkt.solve(method=)` ('closed_form' is Eq. 29),
+    quantized to a power-of-two batch.
 
     update_bits: local model update size s in bits (actual parameter
     bytes; int8 compression divides it by 4 here)."""
+    prob, T_cm, update_bits = _plan_problem(fed, pop, update_bits, wireless)
+    sol = kkt.solve(prob, method=method).quantized(prob)
+    return _assemble_plan(sol, prob, T_cm, update_bits)
+
+
+def _plan_problem(fed, pop, update_bits, wireless):
+    """The Alg. 1 problem setup: wire size -> Eq. 7 uplink straggler max,
+    bottleneck compute slope."""
     wireless = wireless or WirelessConfig()
     if fed.compress_updates:
         update_bits = update_bits / 4.0  # fp32 -> int8 quantized updates
@@ -53,7 +66,11 @@ def make_plan(
     prob = kkt.DelayProblem(
         T_cm=T_cm, g=g, M=fed.n_devices, eps=fed.epsilon, nu=fed.nu,
         c=fed.c)
-    sol = kkt.closed_form(prob).quantized(prob)
+    return prob, T_cm, update_bits
+
+
+def _assemble_plan(sol: kkt.DelaySolution, prob: kkt.DelayProblem,
+                   T_cm: float, update_bits: float) -> DEFLPlan:
     return DEFLPlan(
         b=int(sol.b),
         theta=sol.theta,
@@ -74,3 +91,31 @@ def plan_to_fedconfig(plan: DEFLPlan, fed: FedConfig) -> FedConfig:
     return dataclasses.replace(
         fed, batch_size=plan.b, theta=plan.theta,
         update_bytes=int(plan.update_bits // 8))
+
+
+def fixed_plan(
+    fed: FedConfig,
+    pop: delay.DevicePopulation,
+    update_bits: float,
+    b: int,
+    V: int,
+    wireless: Optional[WirelessConfig] = None,
+    theta: Optional[float] = None,
+) -> DEFLPlan:
+    """A baseline plan with manually chosen (b, V) — FedAvg / 'Rand.' rows.
+
+    H is NOT predicted by Eq. 12 for baselines in the paper; the simulator
+    measures it. H_pred is still filled from Eq. 12 for reference — at the
+    exact `theta` when given (a swept theta whose V quantization would
+    otherwise shift H), otherwise at theta = exp(-V/nu).
+    """
+    prob, T_cm, update_bits = _plan_problem(fed, pop, update_bits, wireless)
+    if theta is not None:
+        alpha = max(float(-np.log(theta)), 1e-6)
+    else:
+        alpha = max(V / fed.nu, 1e-6)
+    sol = kkt.evaluate(prob, float(b), alpha, method="fixed")
+    return DEFLPlan(
+        b=b, theta=float(np.exp(-alpha)), V=V, H_pred=sol.H, T_cm=T_cm,
+        T_cp=sol.T_cp, T_round=sol.T_round, overall_pred=sol.overall,
+        update_bits=update_bits, solution=sol, problem=prob)

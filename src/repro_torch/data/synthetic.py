@@ -1,10 +1,10 @@
 """Synthetic image-classification sets (no dataset download is possible).
 
-The set mimics MNIST in shape and cardinality:
-inputs are per-class low-frequency templates plus noise through a tanh.
-Copy of the MNIST-like part of repro/data/synthetic.py: the same RNG
-calls in the same order, so the same seed gives the same arrays. Images
-are NHWC float32, as in the reference.
+The sets mimic MNIST / CIFAR-10 in shape and cardinality: inputs are
+per-class low-frequency templates plus noise through a tanh. Copy of the
+classification part of repro/data/synthetic.py: the same RNG calls in the
+same order, so the same seed gives the same arrays. Images are NHWC
+float32, as in the reference.
 """
 from __future__ import annotations
 
@@ -41,4 +41,11 @@ def make_mnist_like(n: int = 10_000, seed: int = 0) -> ClassificationData:
     rng = np.random.default_rng(seed)
     y = rng.integers(0, 10, n).astype(np.int32)
     x = _teacher_features(rng, n, (28, 28), 1, 10, y)
+    return ClassificationData(x=x, y=y, n_classes=10)
+
+
+def make_cifar_like(n: int = 10_000, seed: int = 0) -> ClassificationData:
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, 10, n).astype(np.int32)
+    x = _teacher_features(rng, n, (32, 32), 3, 10, y)
     return ClassificationData(x=x, y=y, n_classes=10)

@@ -9,6 +9,12 @@ named configurations:
     spec = experiment.get("mnist_paper")    # plan=True: solve (b*, theta*)
     sim = spec.build()                      # on the CUDA card
     state, res = sim.run(sim.init(), max_rounds=100, eval_every=10)
+    fleet = sim.run_fleet(seeds=range(8), max_rounds=100, eval_every=10)
+
+The reference's fields for scenarios, traces, faults, populations with
+cohorts, client sharding, the other backends, asynchronous aggregation
+and the kernel implementation switch are not here: the port runs none of
+them yet (ROADMAP.md, queue 1).
 
 The plan, the data, the partition and the device population are the
 reference's, value for value (numpy copies of its numpy code).
@@ -21,12 +27,13 @@ from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch.func import vmap
 
 from repro_torch.configs.base import ComputeConfig, FedConfig, WirelessConfig
 from repro_torch.convert import to_torch
 from repro_torch.core import defl, delay
 from repro_torch.data.pipeline import BatchIterator
-from repro_torch.data.synthetic import make_mnist_like
+from repro_torch.data.synthetic import make_cifar_like, make_mnist_like
 from repro_torch.device import resolve_device
 from repro_torch.federated.partition import (partition_dirichlet,
                                              partition_sizes)
@@ -41,15 +48,6 @@ from repro_torch.optim.sgd import sgd
 CALIBRATED_COMPUTE = ComputeConfig(bits_per_sample=6.8e5)
 CALIBRATED_C = 4.0
 
-# The reference spec's defaults, fixed here until a registered spec needs
-# another value: the wireless link, the Dirichlet non-IID knob, the
-# population's lognormal spread (0: the paper's homogeneous devices) and
-# the cap on a planned b*.
-WIRELESS = WirelessConfig()
-ALPHA = 1.0
-HETEROGENEITY = 0.0
-BATCH_CAP = 32
-
 MODELS = {
     "mnist_cnn": cnn.mnist_cnn,
     "mnist_cnn_small": cnn.mnist_cnn_small,
@@ -57,29 +55,49 @@ MODELS = {
     "cifar_cnn": cnn.cifar_cnn,
 }
 
+DATASETS = {"mnist": make_mnist_like, "cifar": make_cifar_like}
+
 
 @dataclass(frozen=True)
 class ExperimentSpec:
-    """One experiment, declaratively; `replace()` derives variants.
+    """One experiment, declaratively; `replace()` derives variants. The
+    fields and defaults are the reference's.
 
     fed            the federated/DEFL configuration (M, b, theta, lr,
                    compression, ...). With `plan=True`, b/theta/V are
                    solved against the drawn population and `fed` provides
                    the problem constants (epsilon, nu, c, M).
     model          registry name (MODELS) or a literal cnn.CNNConfig.
-    n_train/n_test sizes of the synthetic MNIST-like train and test sets.
+    dataset        'mnist' | 'cifar' (synthetic *-like tasks, DATASETS).
+    n_train/n_test dataset sizes; alpha the Dirichlet non-IID knob.
     seed           draw seed for dataset, partition, population and the
-                   initial model; run seeds are chosen at `Simulator.init`.
-    plan           solve Alg. 1 (the Eq. 29 closed form) for
-                   (b*, theta*) before building.
+                   initial model; run seeds are chosen at `Simulator.init`
+                   / `run_fleet`, which is what multi-seed bands vary.
+    heterogeneity  the population's lognormal spread (0: the paper's
+                   homogeneous devices).
+    compute        the devices' compute model; wireless the uplink.
+    plan           solve Alg. 1 for (b*, theta*) before building.
+    plan_method    the KKT solver: 'closed_form' (Eq. 29) | 'corrected'
+                   | 'numerical' (kkt.solve).
+    batch_cap      cap applied to a planned b* (paper §VI-B); None
+                   disables it.
+    with_eval      wire the test-set accuracy eval into the Simulator.
     """
 
     fed: FedConfig = FedConfig()
     model: Union[str, cnn.CNNConfig] = "mnist_cnn"
+    dataset: str = "mnist"
     n_train: int = 1500
     n_test: int = 400
+    alpha: float = 1.0
     seed: int = 0
+    heterogeneity: float = 0.0
+    compute: ComputeConfig = CALIBRATED_COMPUTE
+    wireless: WirelessConfig = WirelessConfig()
     plan: bool = False
+    plan_method: str = "closed_form"
+    batch_cap: Optional[int] = 32
+    with_eval: bool = True
     label: str = ""
 
     def replace(self, **kw) -> "ExperimentSpec":
@@ -99,8 +117,8 @@ class ExperimentSpec:
     def device_population(self) -> delay.DevicePopulation:
         """Draw the (M,) device population (compute + channel)."""
         return delay.draw_population(
-            self.fed.n_devices, CALIBRATED_COMPUTE, WIRELESS, self.seed,
-            HETEROGENEITY)
+            self.fed.n_devices, self.compute, self.wireless, self.seed,
+            self.heterogeneity)
 
     def update_bits(self) -> float:
         """Raw float32 wire size of one model update (the plan's input;
@@ -114,15 +132,16 @@ class ExperimentSpec:
         if not self.plan:
             return None
         return defl.make_plan(self.fed, pop, self.update_bits(),
-                              wireless=WIRELESS)
+                              wireless=self.wireless,
+                              method=self.plan_method)
 
     def _fed_with_plan(self, plan: Optional[defl.DEFLPlan]) -> FedConfig:
         if plan is None:
             return self.fed
         fed = defl.plan_to_fedconfig(plan, self.fed)
-        return dataclasses.replace(fed, batch_size=min(fed.batch_size,
-                                                       BATCH_CAP),
-                                   update_bytes=None)
+        b = fed.batch_size if self.batch_cap is None else min(
+            fed.batch_size, self.batch_cap)
+        return dataclasses.replace(fed, batch_size=b, update_bytes=None)
 
     def resolve_plan(self) -> Optional[defl.DEFLPlan]:
         """The DEFL plan this spec runs under (None when plan=False)."""
@@ -130,50 +149,76 @@ class ExperimentSpec:
 
     def resolve_fed(self) -> FedConfig:
         """`fed` with the solved (b*, theta*) applied when plan=True
-        (batch capped at BATCH_CAP, wire size left to the simulator's
+        (batch capped at `batch_cap`, wire size left to the simulator's
         exact accounting), `fed` unchanged otherwise."""
         return self._fed_with_plan(self.resolve_plan())
+
+    def analytic_plan(self) -> defl.DEFLPlan:
+        """The delay-model operating point, always available: the solved
+        DEFL plan when plan=True, otherwise Eq. 12/8 evaluated at the
+        spec's fixed (b, theta) (`defl.fixed_plan` at the exact theta:
+        the FedAvg/Rand baseline rows of the paper's tables)."""
+        if self.plan:
+            return self.resolve_plan()
+        fed = self.fed
+        return defl.fixed_plan(
+            fed, self.device_population(), self.update_bits(),
+            b=fed.batch_size, V=fed.local_rounds,
+            wireless=self.wireless, theta=fed.theta)
 
     # -- materialization ----------------------------------------------------
     def build(self, device=None, params: Any = None,
               noise: Callable = stochastic_noise) -> Simulator:
         """Materialize the Simulator on `device` ("cuda" unless "cpu" is
         asked for): draw data/partition/population at `self.seed`, solve
-        the plan once, and wire model, loss and eval.
+        the plan once, and wire model, loss and (with_eval) the eval hooks.
 
         params: the initial global model as a tree of arrays in the
         reference's layout, e.g. a model from the JAX package carried over
         by convert.py (default: cnn.init_cnn at `self.seed`). noise: the
         simulator's quantizer-noise draw (see Simulator)."""
         dev = resolve_device(device)
+        make = DATASETS[self.dataset]
         pop = self.device_population()
         fed = self._fed_with_plan(self._solve_plan(pop))
         cfg = self.model_config()
-        data = make_mnist_like(self.n_train, seed=self.seed)
+        data = make(self.n_train, seed=self.seed)
         init = (cnn.init_cnn(cfg, self.seed, dev) if params is None
                 else to_torch(params, dev))
-        parts = partition_dirichlet(data, fed.n_devices, alpha=ALPHA,
+        parts = partition_dirichlet(data, fed.n_devices, alpha=self.alpha,
                                     seed=self.seed)
 
         def data_factory(seed: int):
             return [BatchIterator(data, p, fed.batch_size, seed=seed + i)
                     for i, p in enumerate(parts)]
 
-        test = make_mnist_like(self.n_test, seed=self.seed + 1)
-        xb = torch.as_tensor(test.x, device=dev)
-        yb = torch.as_tensor(test.y, dtype=torch.int64, device=dev)
+        eval_fn = eval_batch_fn = None
+        if self.with_eval:
+            test = make(self.n_test, seed=self.seed + 1)
+            xb = torch.as_tensor(test.x, device=dev)
+            yb = torch.as_tensor(test.y, dtype=torch.int64, device=dev)
 
-        @torch.no_grad()
-        def eval_fn(p):
-            logits = cnn.cnn_forward(cfg, p, xb)
-            return {"acc": float(
-                (logits.argmax(-1) == yb).to(torch.float32).mean())}
+            @torch.no_grad()
+            def eval_fn(p):
+                logits = cnn.cnn_forward(cfg, p, xb)
+                return {"acc": float(
+                    (logits.argmax(-1) == yb).to(torch.float32).mean())}
+
+            # The twin over a stacked member axis, for fleets: one call for
+            # all members. It agrees exactly with eval_fn per member: the
+            # hits are 0/1, so their float32 mean is exact in any order.
+            @torch.no_grad()
+            def eval_batch_fn(ps):
+                logits = vmap(lambda p: cnn.cnn_forward(cfg, p, xb))(ps)
+                hits = (logits.argmax(-1) == yb[None]).to(torch.float32)
+                return {"acc": hits.mean(dim=-1).cpu().numpy()}
 
         return Simulator(
             lambda p, batch: cnn.cnn_loss(cfg, p, batch), init,
             data_factory, partition_sizes(parts), fed, sgd(fed.lr), pop,
-            wireless=WIRELESS, eval_fn=eval_fn,
-            label=self.label or "mnist", device=dev, noise=noise)
+            wireless=self.wireless, eval_fn=eval_fn,
+            label=self.label or self.dataset, device=dev, noise=noise,
+            eval_batch_fn=eval_batch_fn)
 
 
 # ---------------------------------------------------------------------------
@@ -207,9 +252,14 @@ def names() -> Tuple[str, ...]:
 register("mnist_paper", ExperimentSpec(
     fed=FedConfig(n_devices=10, epsilon=0.01, nu=2.0, c=CALIBRATED_C,
                   lr=0.05),
-    model="mnist_cnn", plan=True,
+    model="mnist_cnn", dataset="mnist", plan=True,
     label="mnist_paper"))
+register("cifar_paper", ExperimentSpec(
+    fed=FedConfig(n_devices=10, epsilon=0.01, nu=2.0, c=CALIBRATED_C,
+                  lr=0.05),
+    model="cifar_cnn", dataset="cifar", plan=True,
+    label="cifar_paper"))
 register("mnist_smoke", ExperimentSpec(
     fed=FedConfig(n_devices=3, batch_size=8, theta=0.62, lr=0.05),
-    model="mnist_cnn_small", n_train=240, n_test=80,
+    model="mnist_cnn_small", dataset="mnist", n_train=240, n_test=80,
     label="mnist_smoke"))

@@ -21,6 +21,10 @@ from repro_torch.launch import serve
 from repro_torch.models import transformer as tfm
 
 PKG = pathlib.Path(repro_torch.__file__).resolve().parent
+ROOT = PKG.parent.parent
+# The port's scripts outside the package: they import nothing of JAX or of
+# the reference either.
+SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py"]
 MODULES = sorted(
     ".".join(("repro_torch",) + p.relative_to(PKG).with_suffix("").parts)
     .removesuffix(".__init__")
@@ -28,8 +32,10 @@ MODULES = sorted(
 
 
 def test_importing_every_module_leaves_jax_and_repro_out():
-    code = ("import sys\n"
+    code = ("import runpy, sys\n"
             + "".join(f"import {m}\n" for m in MODULES)
+            + "".join(f"runpy.run_path({str(p)!r}, run_name='script')\n"
+                      for p in SCRIPTS)
             + "bad = sorted(m for m in sys.modules if m == 'jax' or "
               "m.startswith('jax.') or m == 'repro' or "
               "m.startswith('repro.'))\n"
@@ -44,9 +50,8 @@ def test_importing_every_module_leaves_jax_and_repro_out():
 
 
 def test_no_source_imports_jax_or_repro():
-    chip_smoke = PKG.parent.parent / "chip_smoke.py"
-    assert chip_smoke.exists()
-    for path in [*PKG.rglob("*.py"), chip_smoke]:
+    assert all(p.exists() for p in SCRIPTS)
+    for path in [*PKG.rglob("*.py"), *SCRIPTS]:
         for node in ast.walk(ast.parse(path.read_text())):
             names = []
             if isinstance(node, ast.Import):
