@@ -66,10 +66,25 @@ Phases (each prints its own lines; any failure exits non-zero):
      weights drawn on the card from a seed), the same shape and gates as
      phase 6 with the selective-scan kernel in the flash kernel's place
      (64 launches in the prefill, none in decode);
-  9. serve reference: as phase 7, for the `falcon-mamba-7b` smoke config.
+  9. serve reference: as phase 7, for the `falcon-mamba-7b` smoke config;
+ 12. edge scenarios and faults, 6 rounds each, every path with the
+     quantize kernel once a round: (a) the registered `mnist_storm`
+     (`hetero_storm`, its own plan) compressed, as phase 4, with its clock,
+     bits and participant counts equal to a CPU run's, its s/round beside
+     phase 4's and the kernel on rows of dropped clients (all zero); (b)
+     compressed `mnist_paper` under `unreliable_edge` (deadline, 2
+     retries, crash/rejoin) with a quorum of 9 that rejects rounds, whose
+     params must be unchanged bit for bit; (c) a guarded run whose
+     `max_update_norm` binds (each round's update within it, the unguarded
+     round 1 far past it) and a run at lr 1e5 that diverges, recovered by
+     `run(recovery=RecoveryPolicy(...))` with its audit trail printed; (d)
+     a compressed 4-seed fleet under `dropout`: one launch a round over
+     65,120 rows, members exact in clock, bits and participants against
+     their runs alone, and phase 11's per-round member contract.
 
-Phases 10 and 11 run right after phase 5; quantize's `launches` in the
-JSON line are those of phases 4, 10 and 11. The last lines are the
+Phases 10, 11 and 12 run right after phase 5; quantize's `launches` in the
+JSON line are those of phases 4, 10, 11 and 12 (a, b, c's guarded run and
+d). The last lines are the
 kernels' JSON record, the card's name and power limit, and
 {"ok": true, "device": {...}}. The script exits non-zero
 without a result when no CUDA card is available or the port's package
@@ -526,9 +541,11 @@ def compressed_spec(name):
                                                 compress_updates=True))
 
 
-def phase_fl_main_path(counters, name="mnist_paper", tag="slice"):
+def phase_fl_main_path(counters, name="mnist_paper", tag="slice",
+                       card=""):
     """The registered spec `name` with int8 compression on the card (tag:
-    the lines' prefix); returns the launches of its 6 rounds."""
+    the lines' prefix); returns the launches of its 6 rounds, its steady
+    s/round and its device busy share, and the run's history."""
     import torch
     from repro_torch.federated import compression
     from repro_torch.models import cnn
@@ -539,7 +556,8 @@ def phase_fl_main_path(counters, name="mnist_paper", tag="slice"):
                    cnn.param_shapes(spec.model_config()).values()
                    for s in layer.values())
     print(f"[{tag}] {name}: {spec.model} ({n_params:,} parameters), "
-          f"M={spec.fed.n_devices}, {spec.n_train} {spec.dataset} samples",
+          f"M={spec.fed.n_devices}, {spec.n_train} {spec.dataset} samples"
+          + (f", scenario {spec.scenario}" if spec.scenario else ""),
           flush=True)
     print(f"[{tag}] plan: b*={plan.b} theta*={plan.theta:.4f} V={plan.V} "
           f"H_pred={plan.H_pred:.2f} T_round={plan.T_round:.4f}s "
@@ -562,7 +580,7 @@ def phase_fl_main_path(counters, name="mnist_paper", tag="slice"):
               f"train_loss={r.train_loss:.6f} uplink_bits={r.uplink_bits:.0f}"
               + (f" test_acc={r.test_acc:.4f}" if r.test_acc is not None
                  else ""))
-    print(f"[{tag}] {elapsed / len(res.history):.4f} s per round "
+    print(f"[{tag}] {elapsed / len(res.history):.4f} s per round on {card} "
           f"({len(res.history)} rounds, first-chunk warm-up included), "
           f"{rows} rows per client update, launches {launches}", flush=True)
     if launches["quantize"] != len(res.history):
@@ -570,9 +588,12 @@ def phase_fl_main_path(counters, name="mnist_paper", tag="slice"):
                          f"{launches['quantize']} in {len(res.history)}")
     if not all(math.isfinite(r.train_loss) for r in res.history):
         raise SystemExit("non-finite train loss on the main path")
-    want_bits = sim.fed.n_devices * bits
-    if any(r.uplink_bits != want_bits for r in res.history):
-        raise SystemExit(f"uplink bits differ from {want_bits}")
+    # Every update that reached the server (all M without a scenario).
+    for r in res.history:
+        n = sim.fed.n_devices if r.n_participants is None else r.n_participants
+        if r.uplink_bits != n * bits:
+            raise SystemExit(f"round {r.round}: uplink bits {r.uplink_bits} "
+                             f"differ from {n} x {bits}")
     if not all(bool(torch.isfinite(p).all()) for p in leaves(res.params)):
         raise SystemExit("non-finite parameters after the main path")
     # Steady state: more chunks of 3 rounds, each timed alone on the
@@ -583,23 +604,25 @@ def phase_fl_main_path(counters, name="mnist_paper", tag="slice"):
         t0 = time.perf_counter()
         state, _ = sim.run_chunk(state, 3)
         per_round.append((time.perf_counter() - t0) / 3)
-    print(f"[{tag}] steady state: median {statistics.median(per_round)!r} s "
-          f"per round, min {min(per_round)!r}, max {max(per_round)!r} "
+    print(f"[{tag}] steady state on {card}: median "
+          f"{statistics.median(per_round)!r} s per round, min "
+          f"{min(per_round)!r}, max {max(per_round)!r} "
           f"({STEADY_CHUNKS} chunks of 3 rounds, no eval; host-bound, varies "
           "by machine)",
           flush=True)
     _, wall, busy, top = profiled(
         lambda: sim.run(state, max_rounds=3, eval_every=3))
-    print(f"[{tag}] profiled 3 rounds: wall {wall:.4f} s, device busy "
-          f"{busy:.4f} s ({busy / wall:.1%}; idle {1 - busy / wall:.1%}), "
-          "profiler on", flush=True)
+    print(f"[{tag}] profiled 3 rounds on {card}: wall {wall:.4f} s, device "
+          f"busy {busy:.4f} s ({busy / wall:.1%}; idle {1 - busy / wall:.1%}),"
+          " profiler on", flush=True)
     for kname, sec in top[:8]:
         print(f"[{tag}]   {sec / 3 * 1e3:9.3f} ms/round {sec / busy:6.1%}  "
               f"{kname[:90]}")
     q_sec = sum(sec for kname, sec in top if "quantize_rows" in kname)
     print(f"[{tag}]   quantize kernel: {q_sec / 3 * 1e3:.3f} ms/round, "
           f"{q_sec / busy:.1%} of device time", flush=True)
-    return launches
+    return {"launches": launches, "s_per_round": statistics.median(per_round),
+            "busy": busy / wall, "history": res.history}
 
 
 def phase_fl_reference():
@@ -644,12 +667,14 @@ FLEET_LOSS_RTOL, FLEET_PARAM_ATOL = 1e-5, 5e-4
 
 
 def _gaps(a, b):
-    """(clock, bits and rounds equal, max relative train-loss gap, max
-    param gap, bit-identical) of two SimResults."""
+    """(clock, bits, participants and rounds equal, max relative
+    train-loss gap, max param gap, bit-identical) of two SimResults."""
     from repro_torch.utils.tree import leaves
     exact = len(a.history) == len(b.history) and all(
-        (x.round, x.sim_time, x.T_cm, x.T_cp, x.uplink_bits)
-        == (y.round, y.sim_time, y.T_cm, y.T_cp, y.uplink_bits)
+        (x.round, x.sim_time, x.T_cm, x.T_cp, x.uplink_bits,
+         x.n_participants, x.rejected)
+        == (y.round, y.sim_time, y.T_cm, y.T_cp, y.uplink_bits,
+            y.n_participants, y.rejected)
         for x, y in zip(a.history, b.history))
     loss = max(abs(x.train_loss - y.train_loss) / abs(y.train_loss)
                for x, y in zip(a.history, b.history))
@@ -813,6 +838,252 @@ def phase_quickstart(counters):
     if not (len(res.history) == 5 and len(fleet) == 4
             and all(math.isfinite(v) for v in summary.values())):
         raise SystemExit(f"the quickstart twin did not finish: {summary}")
+
+
+# -- edge scenarios and faults (phase 12) -----------------------------------------
+
+# (b)'s quorum: unreliable_edge keeps 8 or 9 of mnist_paper's 10 clients in
+# these 6 rounds, so 9 rejects some rounds and passes others.
+QUORUM = 9
+# (c): every client's update norm in mnist_paper's first rounds is 0.28 or
+# more (3.4 or more in round 1), so this norm clips every client.
+MAX_UPDATE_NORM = 0.2
+# (c): the lr at which compressed mnist_paper diverges by round 2, and the
+# recovery policy that brings it back.
+DIVERGE_LR = 1e5
+RECOVERY = dict(max_restarts=4, lr_backoff=1e-3, tighten_guard=0.5)
+
+
+def _zeroed_clients(rows, clients, dropped, seed):
+    """(rows, 1024) deltas of `clients` clients with those in `dropped` all
+    zero: what a round with dropped or rejected clients quantizes."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(rows, 1024, generator=g) * 1e-3
+    per = rows // clients
+    for c in dropped:
+        x[c * per:(c + 1) * per] = 0.0
+    return x
+
+
+def phase_storm_quantize(dev, card):
+    """The quantize kernel on phase 12's inputs: rows of dropped clients
+    all zero, at mnist_storm's 16,280 rows and the fleet's 65,120; exact
+    against its plain version, timed beside it."""
+    import torch
+    from repro_torch.kernels.quantize import ops, ref
+    out = {}
+    for rows, clients, dropped in ((16280, 10, (1, 4, 7)),
+                                   (65120, 40, (0, 5, 13, 22, 23, 39))):
+        x = _zeroed_clients(rows, clients, dropped, rows).to(dev)
+        u = ref.stochastic_noise(torch.Generator(device=dev).manual_seed(2),
+                                 x.shape)
+        q, sc = ops.quantize(x, u)
+        q_r, s_r = ref.quantize_ref(x, u)
+        bad = int((q != q_r).sum()) + int((sc != s_r).sum())
+        ms = time_ms(lambda: ops.quantize(x, u))
+        plain_ms = time_ms(lambda: ref.quantize_ref(x, u))
+        print(f"[storm] quantize {rows}x1024, {len(dropped)} of {clients} "
+              f"clients' rows zero, on {card}: {bad} mismatches, kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+        if bad:
+            raise SystemExit("quantize kernel disagrees on zeroed rows")
+        out[rows] = (ms, plain_ms)
+    return out
+
+
+def _launched(counters, fn):
+    """fn() with every count set to 0 before it: (its result, launches)."""
+    for ops in counters.values():
+        ops.launches = 0
+    out = fn()
+    return out, {name: ops.launches for name, ops in counters.items()}
+
+
+def _check_quantize_rounds(tag, launches, rounds):
+    if launches["quantize"] != rounds:
+        raise SystemExit(f"[{tag}] expected one quantize launch a round, "
+                         f"got {launches['quantize']} in {rounds} rounds")
+
+
+def phase_storm(counters, card, paper):
+    """(a): compressed mnist_storm as phase 4, then the same spec on the
+    CPU: clock, bits and participant counts equal, round for round."""
+    storm = phase_fl_main_path(counters, "mnist_storm", "storm", card)
+    cpu = compressed_spec("mnist_storm").build(device="cpu")
+    _, res = cpu.run(cpu.init(), max_rounds=6, eval_every=3)
+    key = lambda r: (r.round, r.sim_time, r.T_cm, r.T_cp,  # noqa: E731
+                     r.uplink_bits, r.n_participants)
+    same = [key(a) == key(b) for a, b in zip(storm["history"], res.history)]
+    print(f"[storm] participants a round {[r.n_participants for r in res.history]}"
+          f" of 10; clock, bits and participants equal to a CPU run's in "
+          f"{sum(same)}/{len(same)} rounds", flush=True)
+    if not (all(same) and len(same) == 6):
+        raise SystemExit("mnist_storm's clock, bits or participants differ "
+                         "from the CPU run's")
+    print(f"[storm] on {card}: mnist_storm {storm['s_per_round']!r} s per "
+          f"round ({storm['busy']:.1%} busy) beside mnist_paper "
+          f"{paper['s_per_round']!r} s per round ({paper['busy']:.1%} busy),"
+          " steady state, no eval", flush=True)
+    return storm["launches"]
+
+
+def phase_quorum(counters, card):
+    """(b): compressed mnist_paper under unreliable_edge with a quorum that
+    rejects; a rejected round leaves the params bit for bit."""
+    import torch
+    from repro_torch.federated import scenarios
+    from repro_torch.utils.tree import leaves
+    faults = scenarios.get("unreliable_edge").faults.replace(
+        min_quorum=QUORUM, quorum_policy="reject")
+    spec = compressed_spec("mnist_paper").replace(scenario="unreliable_edge",
+                                                  faults=faults)
+    sim = spec.build()
+
+    def rounds():
+        state, hist, unchanged = sim.init(), [], []
+        for _ in range(6):
+            before = state
+            state, res = sim.run(state, max_rounds=1)
+            rec = res.history[0]
+            hist.append(rec)
+            if rec.rejected:
+                unchanged.append(all(torch.equal(a, b) for a, b in zip(
+                    leaves(state.params_C), leaves(before.params_C))))
+        return hist, unchanged
+
+    (hist, unchanged), launches = _launched(counters, rounds)
+    for r in hist:
+        print(f"[quorum] round {r.round}: sim_time={r.sim_time:.6f}s "
+              f"participants={r.n_participants} rejected={r.rejected} "
+              f"uplink_bits={r.uplink_bits:.0f} train_loss={r.train_loss:.6f}",
+              flush=True)
+    print(f"[quorum] unreliable_edge + quorum {QUORUM} on {card}: deadline "
+          f"{sim._deadline:.6f} s, b={sim.fed.batch_size} "
+          f"V={sim.fed.local_rounds}, {len(unchanged)} rounds rejected, "
+          f"params unchanged on them: {unchanged}, launches {launches}",
+          flush=True)
+    _check_quantize_rounds("quorum", launches, 6)
+    if not unchanged or not all(unchanged):
+        raise SystemExit("no rejected round, or a rejected round moved "
+                         "the params")
+    if not all(math.isfinite(r.train_loss) for r in hist):
+        raise SystemExit("non-finite loss under unreliable_edge")
+    return launches
+
+
+def _moved(a, b):
+    """L2 distance between the global models of two states."""
+    import torch
+    from repro_torch.utils.tree import leaves
+    return float(torch.sqrt(sum(torch.sum((x[0] - y[0]).double() ** 2)
+                                for x, y in zip(leaves(a.params_C),
+                                                leaves(b.params_C)))))
+
+
+def phase_guard(counters, card):
+    """(c): a guarded run whose max_update_norm binds, then a diverging
+    run recovered by run(recovery=...)."""
+    from repro_torch.federated.faults import (DivergenceError, FaultModel,
+                                              RecoveryPolicy)
+    base = compressed_spec("mnist_paper")
+    plain = base.replace(with_eval=False).build()
+    s0 = plain.init()
+    s1, _ = plain.run(s0, max_rounds=1)
+    free = _moved(s1, s0)
+    sim = base.replace(faults=FaultModel(max_update_norm=MAX_UPDATE_NORM),
+                       with_eval=False).build()
+
+    def guarded():
+        state, moved, hist = sim.init(), [], []
+        for _ in range(6):
+            nxt, res = sim.run(state, max_rounds=1)
+            moved.append(_moved(nxt, state))
+            hist.extend(res.history)
+            state = nxt
+        return moved, hist
+
+    (moved, hist), launches = _launched(counters, guarded)
+    print(f"[guard] max_update_norm {MAX_UPDATE_NORM} on {card}: the global "
+          f"model moved {[float(f'{m:.4g}') for m in moved]} a round (round 1"
+          f" unguarded: {free:.4g}); losses "
+          f"{[float(f'{r.train_loss:.5g}') for r in hist]}; launches "
+          f"{launches}", flush=True)
+    _check_quantize_rounds("guard", launches, 6)
+    # Each client's delta is clipped to the norm; their weighted mean is
+    # within it, and the int8 round trip adds its rounding on top.
+    if not (free > 5 * MAX_UPDATE_NORM
+            and max(moved) < 1.5 * MAX_UPDATE_NORM
+            and all(math.isfinite(r.train_loss) for r in hist)):
+        raise SystemExit("the update guard did not bind")
+
+    poisoned = base.replace(
+        fed=dataclasses.replace(base.fed, lr=DIVERGE_LR),
+        faults=FaultModel(max_update_norm=1e9, reject_nonfinite=False))
+    bad = poisoned.build()
+    try:
+        bad.run(bad.init(), max_rounds=6, eval_every=3)
+        raise SystemExit(f"lr {DIVERGE_LR:g} did not diverge")
+    except DivergenceError as e:
+        print(f"[guard] lr {DIVERGE_LR:g}: DivergenceError at round {e.round}"
+              f", last-good state at round {e.state.round}, finite clients "
+              f"{e.finite_mask.tolist()}", flush=True)
+    (state, res), rec_launches = _launched(counters, lambda: bad.run(
+        bad.init(), max_rounds=6, eval_every=3,
+        recovery=RecoveryPolicy(**RECOVERY)))
+    for a in res.restarts:
+        print(f"[guard] restart {a['attempt']}: diverged at round "
+              f"{a['round']}, resumed from round {a['resume_round']}, "
+              f"lr_scale {a['lr_scale']:g}, max_update_norm "
+              f"{a['max_update_norm']:g}", flush=True)
+    print(f"[guard] recovered run on {card}: rounds "
+          f"{[r.round for r in res.history]}, losses "
+          f"{[float(f'{r.train_loss:.5g}') for r in res.history]}, launches "
+          f"{rec_launches} (restarted rounds included)", flush=True)
+    if not (res.restarts and [r.round for r in res.history]
+            == list(range(1, 7))
+            and all(math.isfinite(r.train_loss) for r in res.history)):
+        raise SystemExit("the recovery policy did not recover the run")
+    return launches
+
+
+def phase_dropout_fleet(counters, card):
+    """(d): a compressed 4-seed fleet under dropout: one launch a round for
+    all four, members exact in clock, bits and participants against their
+    runs alone, and the per-round member contract of phase 11."""
+    import torch
+    spec = compressed_spec("mnist_paper").replace(scenario="dropout")
+    sim = spec.build()
+    S = len(FLEET_SEEDS)
+    t0 = time.perf_counter()
+    fleet, launches = _launched(counters, lambda: sim.run_fleet(
+        seeds=FLEET_SEEDS, max_rounds=6, eval_every=3))
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    rounds = len(fleet.results[0].history)
+    print(f"[dropout-fleet] run_fleet(seeds=range({S})) of compressed "
+          f"mnist_paper under dropout on {card}: {rounds} rounds in "
+          f"{elapsed:.4f} s (warm-up included), launches {launches}",
+          flush=True)
+    _check_quantize_rounds("dropout-fleet", launches, 6)
+    for s, res in zip(FLEET_SEEDS, fleet.results):
+        _, solo = sim.run(sim.init(s), max_rounds=6, eval_every=3)
+        exact, loss, param, _ = _gaps(res, solo)
+        print(f"[dropout-fleet] member {s}: participants "
+              f"{[r.n_participants for r in res.history]}, clock/bits/"
+              f"participants exact {exact}, 6-round loss gap {loss:.3g}, "
+              f"param gap {param:.3g}", flush=True)
+        if not exact:
+            raise SystemExit(f"dropout fleet member {s} differs from its "
+                             "run alone in clock, bits or participants")
+    loss, member, wrong = _member_contract(sim, FLEET_SEEDS, rounds)
+    print(f"[dropout-fleet] member contract, {rounds} rounds from equal "
+          f"states: max rel loss gap {loss:.3g} (tol {FLEET_LOSS_RTOL:g}); "
+          f"largest param gap a round {[float(f'{g:.3g}') for g in member]} "
+          f"(tol {FLEET_PARAM_ATOL:g}); seed {FLEET_SEEDS[0]} fed seed "
+          f"{FLEET_SEEDS[1]}'s noise {[float(f'{g:.3g}') for g in wrong]}",
+          flush=True)
+    return launches
 
 
 # -- serve paths -----------------------------------------------------------------
@@ -1053,13 +1324,22 @@ def main() -> int:
                "selective_scan": phase_scan_kernel(dev, card)}
 
     # -- 4, 5. the FL path and its reference ---------------------------------
-    fl_launches = [phase_fl_main_path(counters)]
+    paper = phase_fl_main_path(counters, card=card)
+    fl_launches = [paper["launches"]]
     phase_fl_reference()
 
     # -- 10, 11. cifar_paper; the fleet and the quickstart twin --------------
-    fl_launches.append(phase_fl_main_path(counters, "cifar_paper", "cifar"))
+    fl_launches.append(phase_fl_main_path(counters, "cifar_paper", "cifar",
+                                          card)["launches"])
     fl_launches.append(phase_fl_fleet(counters))
     phase_quickstart(counters)
+
+    # -- 12. edge scenarios, faults and resilience ---------------------------
+    phase_storm_quantize(dev, card)
+    fl_launches.append(phase_storm(counters, card, paper))
+    fl_launches.append(phase_quorum(counters, card))
+    fl_launches.append(phase_guard(counters, card))
+    fl_launches.append(phase_dropout_fleet(counters, card))
     for launches in fl_launches:
         others = {k: n for k, n in launches.items() if k != "quantize" and n}
         if others:

@@ -3,10 +3,10 @@
 Ties together the delay models (core/delay.py) and the KKT solution
 (core/kkt.py) into an executable federated training plan: the optimized
 (b*, theta*, V*) plus the predicted round/overall times. Copy of
-`make_plan`, `plan_to_fedconfig` and `fixed_plan` of repro/core/defl.py
-for the dense, fully participating population (participation, cohorts,
-and the batched, deadline and asynchronous planners serve parts of the
-reference the port has not taken up yet).
+`make_plan` (with partial participation and cohorts), `deadline_plan`,
+`plan_to_fedconfig` and `fixed_plan` of repro/core/defl.py (the batched
+and asynchronous planners serve parts of the reference the port has not
+taken up yet).
 """
 from __future__ import annotations
 
@@ -43,29 +43,40 @@ def make_plan(
     update_bits: float,
     wireless: Optional[WirelessConfig] = None,
     method: str = "closed_form",
+    participation: float = 1.0,
+    cohort_size: Optional[int] = None,
 ) -> DEFLPlan:
     """Solve the paper's optimization for a device population: the KKT
     problem solved by `kkt.solve(method=)` ('closed_form' is Eq. 29),
     quantized to a power-of-two batch.
 
     update_bits: local model update size s in bits (actual parameter
-    bytes; int8 compression divides it by 4 here)."""
-    prob, T_cm, update_bits = _plan_problem(fed, pop, update_bits, wireless)
+    bytes; int8 compression divides it by 4 here).
+    participation: expected fraction of clients whose update arrives each
+    round (scenarios with dropout / link failure): the Eq. 12 round-count
+    model sees the effective M = round(participation * M) >= 1.
+    cohort_size: K-client cohorts drawn from the population each round;
+    Eq. 12's effective M is then based on K while the Eq. 5/7 straggler
+    maxes stay population-wide (any client can be drawn)."""
+    prob, T_cm, update_bits = _plan_problem(
+        fed, pop, update_bits, wireless, participation, cohort_size)
     sol = kkt.solve(prob, method=method).quantized(prob)
     return _assemble_plan(sol, prob, T_cm, update_bits)
 
 
-def _plan_problem(fed, pop, update_bits, wireless):
+def _plan_problem(fed, pop, update_bits, wireless, participation=1.0,
+                  cohort_size=None):
     """The Alg. 1 problem setup: wire size -> Eq. 7 uplink straggler max,
-    bottleneck compute slope."""
+    bottleneck compute slope, participation-scaled effective M."""
     wireless = wireless or WirelessConfig()
     if fed.compress_updates:
         update_bits = update_bits / 4.0  # fp32 -> int8 quantized updates
     T_cm = delay.round_comm_time(update_bits, wireless, pop.p, pop.h)
     g = float(max(pop.G / pop.f))  # bottleneck compute slope (s per batch unit)
+    M_base = fed.n_devices if cohort_size is None else int(cohort_size)
+    M_eff = max(1, int(round(M_base * participation)))
     prob = kkt.DelayProblem(
-        T_cm=T_cm, g=g, M=fed.n_devices, eps=fed.epsilon, nu=fed.nu,
-        c=fed.c)
+        T_cm=T_cm, g=g, M=M_eff, eps=fed.epsilon, nu=fed.nu, c=fed.c)
     return prob, T_cm, update_bits
 
 
@@ -84,6 +95,83 @@ def _assemble_plan(sol: kkt.DelaySolution, prob: kkt.DelayProblem,
         solution=sol,
         problem=prob,
     )
+
+
+def deadline_plan(
+    fed: FedConfig,
+    pop: delay.DevicePopulation,
+    update_bits: float,
+    deadline: float,
+    wireless: Optional[WirelessConfig] = None,
+    participation: float = 1.0,
+    b_max: float = 64.0,
+    cohort_size: Optional[int] = None,
+    spare: int = 0,
+) -> DEFLPlan:
+    """Deadline-aware Algorithm 1: re-derive (b, V) when the server
+    truncates every round at `deadline` seconds (faults.FaultModel).
+
+    The Eq. 8 round cost saturates at min(deadline, T_cm + V*T_cp), and
+    clients whose V*t_cp^m + t_cm^m exceeds the deadline drop out of
+    Eq. 12's effective M. The objective is not smooth, so this sweeps the
+    quantized decision space exactly (b in {2^n} up to b_max, alpha on a
+    log grid) and keeps the point of least H * min(D, T) among those where
+    at least one client finishes in time; ValueError when none does.
+    cohort_size and spare (K + spare candidates a round, the K
+    feasible-fastest kept) scale the effective M as in the reference.
+    """
+    if spare and cohort_size is None:
+        raise ValueError("spare over-provisioning requires cohort_size=K")
+    if spare < 0:
+        raise ValueError(f"spare must be >= 0, got {spare}")
+    wireless = wireless or WirelessConfig()
+    if fed.compress_updates:
+        update_bits = update_bits / 4.0
+    t_cm_m = delay.per_client_uplink_time(update_bits, wireless, pop.p, pop.h)
+    T_cm = float(np.max(t_cm_m))
+    g = float(max(pop.G / pop.f))
+    slopes = np.asarray(pop.G, np.float64) / np.asarray(pop.f, np.float64)
+    M_base = fed.n_devices if cohort_size is None else int(cohort_size)
+
+    n_pow = max(int(np.floor(np.log2(b_max))), 0)
+    bs = 2.0 ** np.arange(0, n_pow + 1)
+    als = np.geomspace(1.0 / fed.nu, 20.0, 96)
+
+    best, best_J = None, np.inf
+    for b in bs:
+        for alpha in als:
+            V = max(int(round(fed.nu * alpha)), 1)
+            finish = V * slopes * b + t_cm_m  # per-client round span
+            feas = finish <= deadline
+            if not feas.any():
+                continue
+            if cohort_size is None or spare == 0:
+                M_eff = max(1, int(round(
+                    M_base * participation * feas.mean())))
+            else:
+                exp_feas = (cohort_size + spare) * feas.mean()
+                M_eff = max(1, int(round(
+                    min(float(M_base), exp_feas) * participation)))
+            H = kkt.communication_rounds_alpha(
+                b, alpha, M_eff, fed.epsilon, fed.nu, fed.c)
+            T = min(deadline, T_cm + fed.nu * alpha * g * b)
+            J = H * T
+            if J < best_J:
+                best, best_J = (float(b), float(alpha), M_eff), J
+    if best is None:
+        raise ValueError(
+            f"deadline {deadline:.4g}s is infeasible: no client can finish "
+            "even one local iteration + upload inside it at any batch size")
+    b, alpha, M_eff = best
+    prob = kkt.DelayProblem(
+        T_cm=T_cm, g=g, M=M_eff, eps=fed.epsilon, nu=fed.nu, c=fed.c)
+    sol = kkt.evaluate(prob, b, alpha, method="deadline_grid")
+    return DEFLPlan(
+        b=int(sol.b), theta=sol.theta, V=sol.V, H_pred=sol.H, T_cm=T_cm,
+        T_cp=sol.T_cp,
+        T_round=min(deadline, sol.T_round),
+        overall_pred=sol.H * min(deadline, sol.T_round),
+        update_bits=update_bits, solution=sol, problem=prob)
 
 
 def plan_to_fedconfig(plan: DEFLPlan, fed: FedConfig) -> FedConfig:

@@ -3,9 +3,9 @@
 Deterministic numpy functions of device and channel parameters: the
 simulator draws a heterogeneous device population and evaluates these,
 and the KKT optimizer (core/kkt.py) inverts them. Units: seconds, Hz,
-watts, bits. Copy of the part of repro/core/delay.py that the dense,
-scenario-free simulator and the DEFL plan use; the arithmetic is the
-reference's, so clocks are bit-identical to it.
+watts, bits. Copy of the part of repro/core/delay.py that the simulator
+(with its scenario and fault paths) and the DEFL plans use; the
+arithmetic is the reference's, so clocks are bit-identical to it.
 """
 from __future__ import annotations
 
@@ -75,14 +75,95 @@ def round_comm_time(
     return float(np.max(per_client_uplink_time(update_bits, wc, p, h)))
 
 
+def effective_uplink_times(
+    update_bits: float, wc: WirelessConfig,
+    p: Sequence[float], h_att: np.ndarray, attempts: np.ndarray,
+    backoff_base: float = 0.0, backoff_factor: float = 2.0,
+) -> np.ndarray:
+    """Per-client uplink time under retransmission (fault path).
+
+    A client that made `a` attempts occupies the channel for the SUM of
+    its per-attempt Eq. 6 airtimes (each against that attempt's realized
+    gain, h_att[..., k]) plus the exponential-backoff waits before
+    attempts 2..a (backoff_base * backoff_factor**(k-1) before attempt
+    k+1). Clients with attempts == 0 (absent/crashed) fall back to their
+    attempt-0 single-shot time, so the zero-participation
+    full-population clock fallback stays meaningful.
+
+    Shapes: p (M,) or broadcastable; h_att (..., M, A); attempts (..., M)
+    int. Returns (..., M) float64, vectorized over an optional leading
+    round axis: each row of the (R, M, A) chunk case is bit-identical to
+    the per-round call.
+    """
+    h_att = np.asarray(h_att, np.float64)
+    attempts = np.asarray(attempts)
+    p = np.asarray(p, np.float64)
+    t_att = per_client_uplink_time(update_bits, wc, p[..., None], h_att)
+    k = np.arange(h_att.shape[-1])
+    used = k < attempts[..., None]
+    t_used = np.where(used, t_att, 0.0).sum(axis=-1)
+    wait = np.where((k >= 1) & used,
+                    backoff_base * np.power(backoff_factor, k - 1.0),
+                    0.0).sum(axis=-1)
+    return np.where(attempts > 0, t_used + wait, t_att[..., 0])
+
+
 # ---------------------------------------------------------------------------
 # Round time (Eq. 8)
 # ---------------------------------------------------------------------------
 
 
-def round_time(T_cm: float, T_cp: float, V: int) -> float:
-    """Eq. 8: T = T_cm + V * T_cp."""
-    return T_cm + V * T_cp
+def finish_times(t_cp, t_cm, V: int) -> np.ndarray:
+    """Per-client round finish time V * T_cp^m + T_cm^m (float64, Eqs.
+    4+6): with a round deadline in force, `finish <= deadline` is the
+    feasibility mask of the simulator's deadline cut."""
+    return (np.asarray(t_cp, np.float64) * V
+            + np.asarray(t_cm, np.float64))
+
+
+def round_time(T_cm: float, T_cp: float, V: int, deadline=None) -> float:
+    """Eq. 8: T = T_cm + V * T_cp, truncated at the server's round
+    deadline when one is set (the server stops waiting at `deadline`
+    seconds and aggregates what arrived)."""
+    T = T_cm + V * T_cp
+    return min(deadline, T) if deadline is not None else T
+
+
+def masked_round_times(
+    t_cp: Sequence[float], t_cm: Sequence[float], mask: Sequence[bool],
+) -> tuple[float, float]:
+    """(T_cm, T_cp) as the straggler max over *participating* clients.
+
+    Eq. 5/7 restricted to the round's realized population: absent clients
+    neither compute nor upload, so they cannot be the straggler. A
+    zero-participation round falls back to the full-population max (the
+    server's synchronous wait times out at the slowest possible client).
+    """
+    t_cp = np.asarray(t_cp, np.float64)
+    t_cm = np.asarray(t_cm, np.float64)
+    mask = np.asarray(mask, bool)
+    if not mask.any():
+        return float(np.max(t_cm)), float(np.max(t_cp))
+    return float(np.max(t_cm[mask])), float(np.max(t_cp[mask]))
+
+
+def chunk_round_times(
+    t_cp: Sequence[float], t_cm: Sequence[float], mask: Sequence[bool],
+) -> tuple[np.ndarray, np.ndarray]:
+    """`masked_round_times` over a leading round axis: t_cp (M,) or
+    (R, M), t_cm and mask (R, M) -> (T_cm, T_cp), each (R,) float64, with
+    the same zero-participation fallback. A max over a selected subset is
+    exact, so each row is bit-identical to a per-round call."""
+    mask = np.asarray(mask, bool)
+    t_cp = np.broadcast_to(np.asarray(t_cp, np.float64), mask.shape)
+    t_cm = np.broadcast_to(np.asarray(t_cm, np.float64), mask.shape)
+    any_p = mask.any(axis=1)
+
+    def mmax(t):
+        masked = np.where(mask, t, -np.inf).max(axis=1)
+        return np.where(any_p, masked, t.max(axis=1))
+
+    return mmax(t_cm), mmax(t_cp)
 
 
 # ---------------------------------------------------------------------------

@@ -1,20 +1,20 @@
 """Declarative experiment API: `ExperimentSpec.build() -> Simulator`.
 
-Port of repro/federated/experiment.py for dense, fully participating
-populations: an `ExperimentSpec` is the frozen value form of a simulator's
-wiring — model, data + partition, population, wireless, plan-or-fed —
-with `build()` materializing the `Simulator` and a small registry of
-named configurations:
+Port of repro/federated/experiment.py for dense populations: an
+`ExperimentSpec` is the frozen value form of a simulator's wiring —
+model, data + partition, population, edge scenario and faults, wireless,
+plan-or-fed — with `build()` materializing the `Simulator` and a small
+registry of named configurations:
 
-    spec = experiment.get("mnist_paper")    # plan=True: solve (b*, theta*)
+    spec = experiment.get("mnist_storm")    # hetero_storm, planned
     sim = spec.build()                      # on the CUDA card
     state, res = sim.run(sim.init(), max_rounds=100, eval_every=10)
     fleet = sim.run_fleet(seeds=range(8), max_rounds=100, eval_every=10)
 
-The reference's fields for scenarios, traces, faults, populations with
-cohorts, client sharding, the other backends, asynchronous aggregation
-and the kernel implementation switch are not here: the port runs none of
-them yet (ROADMAP.md, queue 1).
+The reference's fields for traces, populations with cohorts, client
+sharding, the other backends, asynchronous aggregation and the kernel
+implementation switch are not here: the port runs none of them yet
+(ROADMAP.md, queue 1).
 
 The plan, the data, the partition and the device population are the
 reference's, value for value (numpy copies of its numpy code).
@@ -35,6 +35,8 @@ from repro_torch.core import defl, delay
 from repro_torch.data.pipeline import BatchIterator
 from repro_torch.data.synthetic import make_cifar_like, make_mnist_like
 from repro_torch.device import resolve_device
+from repro_torch.federated import scenarios
+from repro_torch.federated.faults import FaultModel
 from repro_torch.federated.partition import (partition_dirichlet,
                                              partition_sizes)
 from repro_torch.federated.simulation import Simulator
@@ -73,8 +75,15 @@ class ExperimentSpec:
     seed           draw seed for dataset, partition, population and the
                    initial model; run seeds are chosen at `Simulator.init`
                    / `run_fleet`, which is what multi-seed bands vary.
-    heterogeneity  the population's lognormal spread (0: the paper's
-                   homogeneous devices).
+    scenario       registered edge-scenario name (scenarios.py) or a
+                   scenarios.Scenario, or None; draws the population and
+                   the per-round participation/channel stream.
+    faults         optional faults.FaultModel overriding (or adding to)
+                   the scenario's failure semantics — deadlines, uplink
+                   retransmission, crash/rejoin, guards, quorum. None
+                   keeps the scenario's own `faults` (if any).
+    heterogeneity  the population's lognormal spread when no scenario is
+                   given (0: the paper's homogeneous devices).
     compute        the devices' compute model; wireless the uplink.
     plan           solve Alg. 1 for (b*, theta*) before building.
     plan_method    the KKT solver: 'closed_form' (Eq. 29) | 'corrected'
@@ -91,6 +100,8 @@ class ExperimentSpec:
     n_test: int = 400
     alpha: float = 1.0
     seed: int = 0
+    scenario: Optional[Union[str, scenarios.Scenario]] = None
+    faults: Optional[FaultModel] = None
     heterogeneity: float = 0.0
     compute: ComputeConfig = CALIBRATED_COMPUTE
     wireless: WirelessConfig = WirelessConfig()
@@ -114,8 +125,27 @@ class ExperimentSpec:
                     f"{tuple(MODELS)}") from None
         return self.model
 
+    def scenario_ref(self) -> Union[str, scenarios.Scenario, None]:
+        """The scenario this spec runs (the reference also resolves a
+        trace here, which the port does not take yet)."""
+        return self.scenario
+
+    def effective_faults(self) -> Optional[FaultModel]:
+        """The FaultModel this spec runs under: its own `faults` when set,
+        else the scenario's, else None; an inactive model is None."""
+        fm = self.faults
+        ref = self.scenario_ref()
+        if fm is None and ref is not None:
+            fm = scenarios.get(ref).faults
+        return fm if fm is not None and fm.active else None
+
     def device_population(self) -> delay.DevicePopulation:
-        """Draw the (M,) device population (compute + channel)."""
+        """Draw the (M,) device population (compute + channel): the
+        scenario's when there is one."""
+        ref = self.scenario_ref()
+        if ref is not None:
+            return scenarios.get(ref).population(
+                self.fed.n_devices, self.compute, self.wireless, self.seed)
         return delay.draw_population(
             self.fed.n_devices, self.compute, self.wireless, self.seed,
             self.heterogeneity)
@@ -131,6 +161,11 @@ class ExperimentSpec:
                     ) -> Optional[defl.DEFLPlan]:
         if not self.plan:
             return None
+        ref = self.scenario_ref()
+        if ref is not None:
+            return scenarios.plan_for_scenario(
+                self.fed, ref, self.update_bits(), cc=self.compute,
+                wc=self.wireless, seed=self.seed, method=self.plan_method)
         return defl.make_plan(self.fed, pop, self.update_bits(),
                               wireless=self.wireless,
                               method=self.plan_method)
@@ -213,12 +248,16 @@ class ExperimentSpec:
                 hits = (logits.argmax(-1) == yb[None]).to(torch.float32)
                 return {"acc": hits.mean(dim=-1).cpu().numpy()}
 
+        ref = self.scenario_ref()
+        label = self.label or (
+            f"{self.dataset}@{scenarios.get(ref).name}" if ref is not None
+            else self.dataset)
         return Simulator(
             lambda p, batch: cnn.cnn_loss(cfg, p, batch), init,
             data_factory, partition_sizes(parts), fed, sgd(fed.lr), pop,
-            wireless=self.wireless, eval_fn=eval_fn,
-            label=self.label or self.dataset, device=dev, noise=noise,
-            eval_batch_fn=eval_batch_fn)
+            wireless=self.wireless, eval_fn=eval_fn, label=label,
+            device=dev, noise=noise, eval_batch_fn=eval_batch_fn,
+            scenario=ref, faults=self.faults)
 
 
 # ---------------------------------------------------------------------------
@@ -263,3 +302,8 @@ register("mnist_smoke", ExperimentSpec(
     fed=FedConfig(n_devices=3, batch_size=8, theta=0.62, lr=0.05),
     model="mnist_cnn_small", dataset="mnist", n_train=240, n_test=80,
     label="mnist_smoke"))
+register("mnist_storm", ExperimentSpec(
+    fed=FedConfig(n_devices=10, epsilon=0.01, nu=2.0, c=CALIBRATED_C,
+                  lr=0.05),
+    model="mnist_cnn", dataset="mnist", scenario="hetero_storm", plan=True,
+    label="mnist_storm"))

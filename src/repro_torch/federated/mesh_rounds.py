@@ -1,12 +1,21 @@
 """The DEFL round step: Algorithm 1's round over a stacked client axis.
 
-Port of repro/federated/mesh_rounds.py for one device, dense and fully
-participating: clients are a stacked leading axis C on every param and
-optimizer leaf. One round = V local SGD steps per client (batched over C
-with torch.func.vmap) + weighted FedAvg + broadcast back to all C rows.
-A fleet of S runs (Simulator.run_fleet) folds its members into that axis
-(S*C rows, members major) where the reference vmaps its compiled chunk
-over a member axis; each member still averages only its own C clients.
+Port of repro/federated/mesh_rounds.py for one device: clients are a
+stacked leading axis C on every param and optimizer leaf. One round = V
+local SGD steps per client (batched over C with torch.func.vmap) +
+weighted FedAvg + broadcast back to all C rows. A fleet of S runs
+(Simulator.run_fleet) folds its members into that axis (S*C rows, members
+major) where the reference vmaps its compiled chunk over a member axis;
+each member still averages only its own C clients.
+
+Under a scenario the round is masked: a per-round (S*C,) participation
+mask renormalises each member's FedAvg weights over its participating
+clients, dropped clients keep their pre-round params and optimizer state,
+and the fault layer's guard and quorum gate act on the same mask (see
+build_round_step and build_fleet_chunk). The reference's in-graph float32
+Eq. 8 clock (`_masked_clock`) and its in-graph uplink bits are not
+ported: nothing in the port reads them, because the records take the
+clock and the bits from the float64 host model (core/delay.py).
 
 Aggregation modes:
   'allreduce'       the weighted FedAvg mean in float32 (paper-faithful).
@@ -25,7 +34,7 @@ from torch.func import grad_and_value, vmap
 
 from repro_torch.federated import compression
 from repro_torch.optim.api import Optimizer, apply_updates
-from repro_torch.utils.tree import tree_map
+from repro_torch.utils.tree import leaves, tree_map
 
 
 def local_steps_fn(loss_fn: Callable, opt: Optimizer):
@@ -48,12 +57,96 @@ def local_steps_fn(loss_fn: Callable, opt: Optimizer):
     return run
 
 
+def _participation_weights(sizes: torch.Tensor, mask: torch.Tensor):
+    """FedAvg weights renormalised over each member's participating
+    clients: sizes (C,) raw data sizes, mask (S*C,) 1.0 where the update
+    arrived -> ((S, C) weights, (S,) any participant).
+
+    Each member has its own mask, so the weights are (S, C), one row a
+    member, where the dense path shares one (C,) vector. Dropped clients
+    get weight exactly 0 (their rows are also reset to pre-round values
+    before the sum, so they add an exact +0.0); a zero-participation
+    member divides by 1 instead of 0 and keeps its old params
+    (`_keep_old_params`)."""
+    C = sizes.shape[0]
+    wm = sizes.to(torch.float32) * mask.to(torch.float32).reshape(-1, C)
+    s = torch.sum(wm, dim=1, keepdim=True)
+    any_p = s > 0
+    return wm / torch.where(any_p, s, 1.0), any_p[:, 0]
+
+
+def _rows(flags: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(S,) member flags as a (S*C, 1, ...) row selector for x."""
+    return flags.repeat_interleave(x.shape[0] // flags.shape[0]).reshape(
+        (x.shape[0],) + (1,) * (x.dim() - 1))
+
+
+def _keep_old_params(agg_p, old_params, any_p: torch.Tensor):
+    """Zero-participation guard, per member: a member whose round had no
+    participant keeps all its rows' old params."""
+    return tree_map(lambda a, o: torch.where(_rows(any_p, a), a, o.to(a.dtype)),
+                    agg_p, old_params)
+
+
+def _select_participating_state(new, old, mask: torch.Tensor):
+    """Per-client select: dropped clients (mask 0) keep their pre-round
+    rows. torch.where and never mask * x: 0 * NaN is NaN."""
+    def sel(n, o):
+        m = mask.reshape((mask.shape[0],) + (1,) * (n.dim() - 1))
+        return torch.where(m > 0, n, o)
+
+    return tree_map(sel, new, old)
+
+
+def _guard_clients(guard, new_p, params_C, losses, mask):
+    """Divergence-guard sanitation of the per-client updates (fault
+    layer): guard is the static (max_norm, reject_nonfinite) pair of
+    faults.FaultModel.guard_spec. Per client the update's L2 norm over all
+    leaves decides: a non-finite norm or loss, with reject, drops the
+    client from the round (folded into the mask; the caller resets its
+    row to its pre-round state); a norm above max_norm scales the delta
+    back to max_norm (the optimizer state keeps the raw step).
+
+    The squares are summed in float32 leaf by leaf, in the reference's
+    leaf order; within a leaf the two frameworks may sum in another
+    order, so a clip decision within an ulp of max_norm can differ
+    between them (tests/test_torch_faults.py holds norms well away
+    from it). Returns (new_p, mask'); mask None is full participation."""
+    max_norm, reject = guard
+    deltas = tree_map(lambda n, o: n.to(torch.float32) - o.to(torch.float32),
+                      new_p, params_C)
+    sq = torch.zeros(losses.shape[0], dtype=torch.float32,
+                     device=losses.device)
+    for d in leaves(deltas):
+        sq = sq + torch.sum(d.reshape(d.shape[0], -1) ** 2, dim=1)
+    norm = torch.sqrt(sq)
+    finite = torch.isfinite(norm) & torch.isfinite(losses)
+    if max_norm < float("inf"):
+        # A tensor over a tensor: a Python float over a tensor would
+        # multiply by the reciprocal, an extra rounding the reference has
+        # not.
+        ratio = torch.full_like(norm, max_norm) / torch.clamp(norm, min=1e-12)
+        scale = torch.where(finite, torch.clamp(ratio, max=1.0), 1.0)
+
+        def clip(o, d):
+            s = scale.reshape((scale.shape[0],) + (1,) * (d.dim() - 1))
+            return (o.to(torch.float32) + d * s).to(o.dtype)
+
+        new_p = tree_map(clip, params_C, deltas)
+    if reject:
+        ok = finite.to(torch.float32)
+        mask = ok if mask is None else mask * ok
+    return new_p, mask
+
+
 def _weighted_client_sum(weights: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """sum_c w_c x_c over each member's C clients, in float32: x is
-    (S*C, ...) with members major, weights (C,); the result is (S, ...)."""
-    C = weights.shape[0]
+    (S*C, ...) with members major; weights (C,) shared by the members, or
+    (S, C) with one row a member (a scenario's renormalised weights); the
+    result is (S, ...)."""
+    C = weights.shape[-1]
     x = x.reshape(-1, C, *x.shape[1:]).to(torch.float32)
-    w = weights.to(torch.float32).reshape((1, C) + (1,) * (x.dim() - 2))
+    w = weights.to(torch.float32).reshape((-1, C) + (1,) * (x.dim() - 2))
     return torch.sum(w * x, dim=1)
 
 
@@ -77,10 +170,12 @@ def _int8_stochastic_mean_bcast(new_params, old_params, weights, u):
     roundtrip (u: the (S*C, rows, 1024) rounding noise; all clients of
     all members in one launch), then each member's weighted mean of the
     reconstructions added to its old global model (its first client row:
-    all its rows are equal before the round) and broadcast."""
+    all its rows are equal before the round) and broadcast. A dropped or
+    rejected client's row was reset to its pre-round state, so it sends
+    an all-zero delta, never a NaN."""
     deltas = tree_map(lambda n, o: n - o, new_params, old_params)
     rec = compression.decompress_update(compression.compress_update(deltas, u))
-    C = weights.shape[0]
+    C = weights.shape[-1]
 
     def agg(r, old):
         mean = _weighted_client_sum(weights, r.reshape(r.shape[0], -1))
@@ -92,62 +187,122 @@ def _int8_stochastic_mean_bcast(new_params, old_params, weights, u):
 
 
 def build_round_step(loss_fn: Callable, opt: Optimizer,
-                     aggregation: str = "allreduce"):
-    """round_step(params_C, opt_C, batches, weights, u=None) ->
-    (params_C', opt_C', per_client_loss). The leading axis of params_C,
-    opt_C and batches (leaves (N, V, ...)) holds S members of C clients
-    each, members major (N = S*C; S = 1 for one run); weights are the
-    (C,) FedAvg weights summing to 1, shared by the members; u is the
-    (N, rows, 1024) quantizer noise, needed by 'int8_stochastic'."""
+                     aggregation: str = "allreduce", guard=None):
+    """round_step(params_C, opt_C, batches, weights, u=None, mask=None) ->
+    (params_C', opt_C', per_client_loss, mask'). The leading axis of
+    params_C, opt_C and batches (leaves (N, V, ...)) holds S members of C
+    clients each, members major (N = S*C; S = 1 for one run); u is the
+    (N, rows, 1024) quantizer noise, needed by 'int8_stochastic'.
+
+    Without a mask, weights are the (C,) FedAvg weights summing to 1,
+    shared by the members. With a (N,) participation mask (a scenario's
+    round), weights are the (C,) raw data sizes, renormalised per member
+    over its participating clients; dropped clients keep their pre-round
+    params and optimizer state and report loss 0; a member with no
+    participant keeps its old params. guard (faults.FaultModel.guard_spec,
+    or None) sanitises the updates first and folds its rejections into the
+    mask (`_guard_clients`), which comes back as mask'.
+
+    The order is the reference's (mesh_rounds.py:447-469): guard, then
+    reset the dropped rows to their pre-round state, then compress, so a
+    dropped or rejected client sends the quantize kernel an all-zero delta
+    and never a NaN."""
     if aggregation not in ("allreduce", "int8_stochastic"):
         raise ValueError(aggregation)
     local = local_steps_fn(loss_fn, opt)
 
-    def round_step(params_C, opt_C, batches, weights, u=None):
+    def round_step(params_C, opt_C, batches, weights, u=None, mask=None):
         new_p, new_s, losses = local(params_C, opt_C, batches)
+        if guard is not None:
+            new_p, mask = _guard_clients(guard, new_p, params_C, losses, mask)
+        any_p = None
+        if mask is not None:
+            weights, any_p = _participation_weights(weights, mask)
+            new_p = _select_participating_state(new_p, params_C, mask)
+            new_s = _select_participating_state(new_s, opt_C, mask)
+            losses = torch.where(mask > 0, losses, 0.0)
         if aggregation == "allreduce":
             agg_p = _weighted_mean_bcast(new_p, weights)
         else:
             agg_p = _int8_stochastic_mean_bcast(new_p, params_C, weights, u)
-        return agg_p, new_s, losses
+        if any_p is not None:
+            agg_p = _keep_old_params(agg_p, params_C, any_p)
+        return agg_p, new_s, losses, mask
 
     return round_step
 
 
 def build_fleet_chunk(loss_fn: Callable, opt: Optimizer, n_clients: int,
                       compress: bool, batch_from: Callable, noise: Callable,
-                      rows: int):
+                      rows: int, guard=None, quorum=None):
     """A chunk of rounds for S members (fleet runs; S = 1 for one run)
     with no host synchronisation inside:
-    chunk_step(params, opt_state, generators, weights, data, idx) ->
-    (params', opt_state', losses). The members are folded into the client
-    axis: params and opt_state leaves are (S*C, ...), members major, so
-    each round is ONE vmap(grad_and_value) over all S*C clients and one
-    per-member weighted FedAvg. idx (R, S*C, V, B) holds the global sample
-    indices of R rounds, gathered on the device from `data` by
-    `batch_from`; losses are the (S, R) per-round train losses on the
-    device (each member's unweighted client mean, as the reference's scan
-    path reports).
+    chunk_step(params, opt_state, generators, weights, data, idx,
+    mask=None) -> (params', opt_state', ys). The members are folded into
+    the client axis: params and opt_state leaves are (S*C, ...), members
+    major, so each round is ONE vmap(grad_and_value) over all S*C clients
+    and one per-member weighted FedAvg. idx (R, S*C, V, B) holds the
+    global sample indices of R rounds, gathered on the device from `data`
+    by `batch_from`.
+
+    ys holds device tensors, one entry a round along axis 1: 'loss' (S,
+    R), each member's train loss. Without a mask it is the unweighted
+    client mean, as the reference's scan path reports. With mask (R,
+    S*C), a scenario's participation (weights are then the raw sizes,
+    see build_round_step), it is the mean over the post-guard
+    participants, NaN on a round without one, and ys adds
+    'n_participants' (S, R), 'finite' (S, R, C) (each client's loss
+    finite: the DivergenceError diagnostic) and, with quorum, 'rejected'
+    (S, R).
+
+    quorum (count, policy) gates each member's round on its post-guard
+    participation: below count raises 'rejected', and under 'reject' the
+    member's params and optimizer state keep their pre-round values bit
+    for bit while its noise generator still advances (the reference's key
+    advances too: mesh_rounds.py:681-690).
 
     With compress, each round draws member s's quantizer noise as one
     noise(generators[s], (C, rows, 1024)) call, in member order (the
     draws a run of that member alone makes), and quantizes all S*C
     clients' updates in ONE kernel launch."""
     step = build_round_step(
-        loss_fn, opt, "int8_stochastic" if compress else "allreduce")
+        loss_fn, opt, "int8_stochastic" if compress else "allreduce", guard)
+    C = n_clients
 
-    def chunk_step(params, opt_state, generators, weights, data: Dict, idx):
-        losses = []
+    def chunk_step(params, opt_state, generators, weights, data: Dict, idx,
+                   mask=None):
+        ys = {"loss": [], "n_participants": [], "finite": [], "rejected": []}
         for r in range(idx.shape[0]):
             u = None
             if compress:
-                us = [noise(g, (n_clients, rows, compression.ROW))
+                us = [noise(g, (C, rows, compression.ROW))
                       for g in generators]
                 u = us[0] if len(us) == 1 else torch.cat(us)
-            params, opt_state, per_client = step(
-                params, opt_state, batch_from(data, idx[r]), weights, u)
-            losses.append(per_client.reshape(-1, n_clients).mean(dim=1))
-        return params, opt_state, torch.stack(losses, dim=1)
+            new_p, new_s, per_client, m_eff = step(
+                params, opt_state, batch_from(data, idx[r]), weights, u,
+                None if mask is None else mask[r])
+            if mask is None:
+                ys["loss"].append(per_client.reshape(-1, C).mean(dim=1))
+                params, opt_state = new_p, new_s
+                continue
+            msk = m_eff.reshape(-1, C)
+            n = torch.sum(msk, dim=1)
+            loss = (torch.sum(per_client.reshape(-1, C) * msk, dim=1)
+                    / torch.where(n > 0, n, 1.0))
+            ys["loss"].append(torch.where(n > 0, loss, float("nan")))
+            ys["n_participants"].append(n)
+            ys["finite"].append(torch.isfinite(per_client).reshape(-1, C))
+            if quorum is not None:
+                rejected = n < quorum[0]
+                ys["rejected"].append(rejected)
+                if quorum[1] == "reject":
+                    keep = lambda nw, old: torch.where(  # noqa: E731
+                        _rows(rejected, nw), old.to(nw.dtype), nw)
+                    new_p = tree_map(keep, new_p, params)
+                    new_s = tree_map(keep, new_s, opt_state)
+            params, opt_state = new_p, new_s
+        return params, opt_state, {k: torch.stack(v, dim=1)
+                                   for k, v in ys.items() if v}
 
     return chunk_step
 

@@ -176,8 +176,8 @@ def test_spec_fields_are_the_references():
     t_fields = {f.name: f for f in dataclasses.fields(t_exp.ExperimentSpec)}
     j_fields = {f.name: f for f in dataclasses.fields(j_exp.ExperimentSpec)}
     assert set(j_fields) - set(t_fields) == {
-        "population", "shard_clients", "scenario", "trace", "faults",
-        "backend", "impl", "async_spec"}
+        "population", "shard_clients", "trace", "backend", "impl",
+        "async_spec"}
     assert set(t_fields) <= set(j_fields)
     for name, f in t_fields.items():
         t_default, j_default = f.default, j_fields[name].default

@@ -174,7 +174,7 @@ def test_max_sim_time_members_stop_and_resume_as_runs_alone():
         # 4's batches next, as an uninterrupted run's iterators do.
         fresh = sim._data_src(s)
         want = stack_chunk_indices(fresh, 4, V)[3]
-        got = stack_chunk_indices(sim._materialize(st), 1, V)[0]
+        got = stack_chunk_indices(sim._materialize(st)[0], 1, V)[0]
         np.testing.assert_array_equal(got, want)
         # ... and a resumed fleet member continues as the resumed run.
         more = sim.run_fleet(states=[st], max_rounds=2, eval_every=2)

@@ -47,6 +47,9 @@ def test_importing_every_module_leaves_jax_and_repro_out():
                          text=True, env=env, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     assert len(MODULES) > 15
+    # The numpy copies of the reference's modules are walked too.
+    assert {"repro_torch.federated.faults",
+            "repro_torch.federated.scenarios"} <= set(MODULES)
 
 
 def test_no_source_imports_jax_or_repro():
