@@ -3,7 +3,7 @@
 
 Copy of repro/configs/base.py's dataclasses, kept here so the port
 imports nothing of the reference package. The model sub-configs the port
-does not run yet (MoE, SSM, modality) are copied too, so a ModelConfig
+does not run yet (MoE, modality) are copied too, so a ModelConfig
 compares field for field with the reference's."""
 from __future__ import annotations
 

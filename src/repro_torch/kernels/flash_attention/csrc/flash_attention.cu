@@ -39,16 +39,22 @@
 //    O += P V with wgmma (A from registers, V as an MN-major B operand:
 //    keys x hd with hd contiguous, the transpose bit set).
 //  - Swizzle: each TMA box row is one swizzle atom row and the wgmma
-//    descriptors use the same mode. hd = 64: 128 B rows, SWIZZLE_128B.
-//    hd = 128: two boxes of 64 columns (panels), each SWIZZLE_128B; the
-//    K-major descriptors step panel by panel, V's descriptor spans both
-//    panels with its leading byte offset. hd = 32: 64 B rows, SWIZZLE_64B.
-//    Every tile starts on a 1024 B boundary, so the descriptors' base
-//    offset is 0 and a K step inside an atom row is +32 B on the address.
-//  - Tiles. kBK = 128 keys for hd <= 64; 64 for hd = 128, where the S and O
-//    accumulators (64 + 64 floats a thread at kBK = 128) would crowd the
-//    registers. Shared memory is not the limit: at most 97 KB a block of
-//    the 227 KB (Q 16 KB + 2 stages x (K + V) 64 KB at hd = 64).
+//    descriptors use the same mode. A tile is split by columns into panels
+//    (one TMA box each): 64 columns (128 B rows, SWIZZLE_128B) where hd is a
+//    multiple of 64 (one panel at 64, two at 128, four at 256); 32 columns
+//    (64 B, SWIZZLE_64B) at hd = 32; 16 columns (32 B, SWIZZLE_32B) at
+//    hd = 80, five panels, so no column past hd is loaded or multiplied.
+//    The K-major descriptors step panel by panel (a K step inside a 128 B
+//    or 64 B row is +32 B on the address); V's descriptor spans the panels
+//    of one PV product with its leading byte offset. Every panel starts on
+//    a 1024 B boundary, so the descriptors' base offset is 0.
+//  - Tiles. kBK = 128 keys below hd = 128; 64 from hd = 128 up, where the S
+//    and O accumulators (kBK / 2 + hd / 2 floats a thread) would crowd the
+//    registers, and where at hd = 256 two stages of 128-key K and V tiles
+//    (256 KB) would not fit the 227 KB of shared memory a block may use. At
+//    most 193 KB a block (hd = 256: Q 64 KB + 2 stages x (K + V) 128 KB).
+//  - PV products: one wgmma of N = hd up to hd = 128 (N = 80 at hd = 80),
+//    two of N = 128 at hd = 256, each over its own half of O.
 //  - Accumulator layout: thread t of a warpgroup holds rows
 //    16 (t / 32) + (t % 32) / 4 and +8, columns 8 j + 2 (t % 4) + {0, 1};
 //    a row lives on the 4 threads of a quad, so the row max takes 2
@@ -70,21 +76,25 @@
 //  warpgroup fills the tensor cores meanwhile).
 //
 // float32: flash_fwd, CUDA cores (float32 has no exact tensor-core path:
-// TF32 keeps ~3 decimal digits). One block of 128 threads owns a tile of 64
-// query rows of one (batch, head) and streams 64-row K/V tiles through
-// shared memory. Tiles wholly past the causal diagonal or wholly before the
-// window are never visited (the loop bounds), so causal work is half of the
-// dense work; only the tiles that straddle a boundary, and the ragged last
-// tile when S is not a multiple of 64, are masked element by element.
-// Thread (rg, cg), rg in 0..15 and cg in 0..7, owns query rows rg + 16 i
-// (i < 4): it computes scores for key columns cg + 8 j (j < 8) and output
-// columns cg*4 + 32 c (4 wide, c < hd/32). The 8 threads of a row are
-// neighbouring lanes, so the running max and sum are reduced with three
-// warp shuffles. Each row keeps (m, l, acc) in registers across tiles
-// (online softmax); P goes through shared memory for the PV product. Q and
-// K rows are padded by 4 floats and P rows by 8 so that the float4 reads of
-// 8 neighbouring rows fall in distinct banks. Its products run as scalar
-// FMAs (67 TFLOP/s), a ceiling of ~0.45 ms at the serving shape.
+// TF32 keeps ~3 decimal digits). One block owns a tile of 64 query rows of
+// one (batch, head) and streams 64-row K/V tiles through shared memory.
+// Tiles wholly past the causal diagonal or wholly before the window are
+// never visited (the loop bounds), so causal work is half of the dense
+// work; only the tiles that straddle a boundary, and the ragged last tile
+// when S is not a multiple of 64, are masked element by element. Thread
+// (rg, cg), cg in 0..7, owns kRows query rows rg + (64 / kRows) i: it
+// computes scores for key columns cg + 8 j (j < 8) and output columns
+// cg*4 + 32 c (4 wide, c < ceil(hd / 32); at hd = 80 the lanes whose third
+// chunk lies past hd skip it). kRows = 4 (128 threads) up to hd = 128 and
+// 2 (256 threads) at hd = 256, where four rows' 4 x 32 output floats would
+// not fit in a thread's registers. The 8 threads of a row are neighbouring
+// lanes, so the running max and sum are reduced with three warp shuffles.
+// Each row keeps (m, l, acc) in registers across tiles (online softmax); P
+// goes through shared memory for the PV product. Q and K rows are padded
+// by 4 floats and P rows by 8 so that the float4 reads of 8 neighbouring
+// rows fall in distinct banks. Its products run as scalar FMAs
+// (67 TFLOP/s), a ceiling of ~0.45 ms at the serving shape. At hd = 256 it
+// takes 217,088 B of shared memory, one block an SM.
 //
 // Precise expf/exp2f and IEEE division (no fast math), so float32 output
 // stays within a few ulps of the plain version.
@@ -104,8 +114,29 @@ namespace {
 
 constexpr int kBQ = 64;        // query rows a block
 constexpr int kBK = 64;        // key rows a tile
-constexpr int kThreads = 128;  // 16 row groups x 8 column lanes
 constexpr int kPStride = kBK + 8;
+
+// A thread's share of the block's work at head dim HD (see the note above).
+template <int HD>
+struct F32Tile {
+  static constexpr int kRows = HD > 128 ? 2 : 4;   // query rows a thread
+  static constexpr int kRowGroups = kBQ / kRows;   // threads a column lane
+  static constexpr int kThreads = 8 * kRowGroups;  // 8 column lanes a row
+  static constexpr int kChunks = (HD + 31) / 32;   // float4 output columns
+  static constexpr int kQStride = HD + 4;
+  static constexpr size_t kSmemBytes =
+      sizeof(float) * (2 * kBQ * kQStride + kBK * HD + kBQ * kPStride);
+  static_assert(HD % 4 == 0, "rows are read as float4");
+  static_assert(kSmemBytes <= 232448, "over the 227 KB a block may use");
+};
+
+// Whether output chunk c of column lane cg (columns 32 c + 4 cg .. + 3)
+// lies inside the head: false only for the last chunk when HD is not a
+// multiple of 32 (hd = 80: lanes 4..7 of chunk 2).
+template <int HD>
+__device__ __forceinline__ bool chunk_in_head(int c, int cg) {
+  return HD % 32 == 0 || c < HD / 32 || 32 * c + 4 * cg < HD;
+}
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -122,7 +153,8 @@ __device__ __forceinline__ void load_tile(float* dst, int dst_stride,
                                           const T* src, size_t row_stride,
                                           int r0, int n_rows) {
   constexpr int kVecPerRow = HD / 4;
-  for (int i = threadIdx.x; i < kBQ * kVecPerRow; i += kThreads) {
+  for (int i = threadIdx.x; i < kBQ * kVecPerRow;
+       i += F32Tile<HD>::kThreads) {
     const int r = i / kVecPerRow;
     const int c = (i % kVecPerRow) * 4;
     float4 val = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
@@ -131,19 +163,16 @@ __device__ __forceinline__ void load_tile(float* dst, int dst_stride,
   }
 }
 
-template <int HD>
-constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         (2 * kBQ * (HD + 4) + kBK * HD + kBQ * kPStride);
-}
-
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(F32Tile<HD>::kThreads)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk, int H,
           int KV, int q_offset, int causal, int window, float scale) {
-  constexpr int kQStride = HD + 4;
-  constexpr int kChunks = HD / 32;  // float4 output columns a thread
+  using F = F32Tile<HD>;
+  constexpr int kRows = F::kRows;
+  constexpr int kRG = F::kRowGroups;  // row i of a thread: rg + kRG * i
+  constexpr int kQStride = F::kQStride;
+  constexpr int kChunks = F::kChunks;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
   float* Ks = Qs + kBQ * kQStride;
@@ -173,9 +202,9 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   int k_begin = window > 0 ? max(0, p_lo - window + 1) : 0;
   k_begin = (k_begin / kBK) * kBK;
 
-  float m[4], l[4], acc[4][4 * kChunks];
+  float m[kRows], l[kRows], acc[kRows][4 * kChunks];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < kRows; ++i) {
     m[i] = -INFINITY;
     l[i] = 0.0f;
 #pragma unroll
@@ -188,23 +217,23 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     load_tile<T, HD>(Vs, HD, vb, kv_row, k0, Sk);
     __syncthreads();
 
-    // S = Q K^T on this thread's 4 x 8 scores.
-    float s[4][8];
+    // S = Q K^T on this thread's kRows x 8 scores.
+    float s[kRows][8];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < kRows; ++i)
 #pragma unroll
       for (int j = 0; j < 8; ++j) s[i][j] = 0.0f;
 #pragma unroll 4
     for (int d = 0; d < HD; d += 4) {
-      float4 qv[4];
+      float4 qv[kRows];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = load4(Qs + (rg + 16 * i) * kQStride + d);
+      for (int i = 0; i < kRows; ++i)
+        qv[i] = load4(Qs + (rg + kRG * i) * kQStride + d);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const float4 kv = load4(Ks + (cg + 8 * j) * kQStride + d);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < kRows; ++i) {
           float t = s[i][j];
           t = fmaf(qv[i].x, kv.x, t);
           t = fmaf(qv[i].y, kv.y, t);
@@ -217,8 +246,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 
     // Mask, then the online softmax update of each row.
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = p_lo + rg + 16 * i;
+    for (int i = 0; i < kRows; ++i) {
+      const int qpos = p_lo + rg + kRG * i;
       float mx = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -254,26 +283,27 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
       for (int c = 0; c < 4 * kChunks; ++c) acc[i][c] *= alpha;
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        Ps[(rg + 16 * i) * kPStride + cg + 8 * j] = s[i][j];
+        Ps[(rg + kRG * i) * kPStride + cg + 8 * j] = s[i][j];
     }
     __syncthreads();
 
-    // acc += P V on this thread's 4 rows x (4 * kChunks) columns.
+    // acc += P V on this thread's kRows rows x (4 * kChunks) columns.
 #pragma unroll 2
     for (int kk = 0; kk < kBK; kk += 4) {
-      float4 p4[4];
+      float4 p4[kRows];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        p4[i] = load4(Ps + (rg + 16 * i) * kPStride + kk);
+      for (int i = 0; i < kRows; ++i)
+        p4[i] = load4(Ps + (rg + kRG * i) * kPStride + kk);
 #pragma unroll
       for (int c = 0; c < kChunks; ++c) {
+        if (!chunk_in_head<HD>(c, cg)) continue;
         const float* vc = Vs + kk * HD + cg * 4 + 32 * c;
         const float4 v0 = load4(vc);
         const float4 v1 = load4(vc + HD);
         const float4 v2 = load4(vc + 2 * HD);
         const float4 v3 = load4(vc + 3 * HD);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < kRows; ++i) {
           float* a = acc[i] + 4 * c;
           a[0] = fmaf(p4[i].w, v3.x, fmaf(p4[i].z, v2.x,
                  fmaf(p4[i].y, v1.x, fmaf(p4[i].x, v0.x, a[0]))));
@@ -290,12 +320,13 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 
   // o = acc / l; rows that never saw a valid key (l == 0) are zero.
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + rg + 16 * i;
+  for (int i = 0; i < kRows; ++i) {
+    const int row = q0 + rg + kRG * i;
     if (row >= Sq) continue;
     const bool any = l[i] > 0.0f;
 #pragma unroll
     for (int c = 0; c < kChunks; ++c) {
+      if (!chunk_in_head<HD>(c, cg)) continue;
       const float* a = acc[i] + 4 * c;
       const float4 out = any ? make_float4(a[0] / l[i], a[1] / l[i],
                                            a[2] / l[i], a[3] / l[i])
@@ -309,13 +340,13 @@ template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Sq, int Sk, int H, int KV, int q_offset, int causal,
            int window, float scale, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<HD>();
+  using F = F32Tile<HD>;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      static_cast<int>(F::kSmemBytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_fwd<T, HD><<<grid, kThreads, smem, stream>>>(
+  flash_fwd<T, HD><<<grid, F::kThreads, F::kSmemBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, H, KV, q_offset,
       causal, window, scale);
@@ -333,8 +364,14 @@ int launch_hd(int hd, const void* q, const void* k, const void* v, void* o,
     case 64:
       return launch<T, 64>(q, k, v, o, B, Sq, Sk, H, KV, q_offset, causal,
                            window, scale, stream);
+    case 80:
+      return launch<T, 80>(q, k, v, o, B, Sq, Sk, H, KV, q_offset, causal,
+                           window, scale, stream);
     case 128:
       return launch<T, 128>(q, k, v, o, B, Sq, Sk, H, KV, q_offset, causal,
+                            window, scale, stream);
+    case 256:
+      return launch<T, 256>(q, k, v, o, B, Sq, Sk, H, KV, q_offset, causal,
                             window, scale, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -357,19 +394,32 @@ constexpr int kTensorMapError = 30000;
 
 template <int HD>
 struct Tile {
-  static constexpr int kBK = HD == 128 ? 64 : 128;       // keys a tile
-  static constexpr int kPanelCols = HD < 64 ? HD : 64;   // columns a box
+  // Keys a tile: 128, or 64 from hd = 128 up (registers; shared memory at
+  // hd = 256).
+  static constexpr int kBK = HD >= 128 ? 64 : 128;
+  // Columns a panel (one TMA box): 64 where hd is a multiple of 64, else 32
+  // (hd = 32) or 16 (hd = 80).
+  static constexpr int kPanelCols = HD % 64 == 0 ? 64 : HD % 32 == 0 ? 32 : 16;
   static constexpr int kPanels = HD / kPanelCols;
-  static constexpr int kRowBytes = 2 * kPanelCols;       // one atom row
-  static constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : 2;  // B128, B64
+  static constexpr int kRowBytes = 2 * kPanelCols;  // one atom row
+  // wgmma descriptor swizzle: 1 = 128 B, 2 = 64 B, 3 = 32 B.
+  static constexpr uint64_t kLayout =
+      kRowBytes == 128 ? 1 : kRowBytes == 64 ? 2 : 3;
   static constexpr int kSBO = 8 * kRowBytes;  // 8-row groups (one atom)
   static constexpr int kQPanelBytes = kBQ90 * kRowBytes;
   static constexpr int kKVPanelBytes = kBK * kRowBytes;
   static constexpr int kQBytes = kPanels * kQPanelBytes;
   static constexpr int kKVBytes = kPanels * kKVPanelBytes;  // one K or V tile
+  // Output columns of one PV product (its wgmma N) and the products a tile.
+  static constexpr int kPVCols = HD > 128 ? 128 : HD;
+  static constexpr int kPVGroups = HD / kPVCols;
+  static constexpr int kPVPanels = kPVCols / kPanelCols;  // panels a product
   // 1024 B of slack to align the tiles, and the 2 kStages + 1 mbarriers.
   static constexpr int kSmemBytes =
       1024 + kQBytes + 2 * kStages * kKVBytes + 8 * (2 * kStages + 1);
+  static_assert(HD % 16 == 0 && kPanels * kPanelCols == HD,
+                "hd must be a multiple of 16");
+  static_assert(kSmemBytes <= 232448, "over the 227 KB a block may use");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -424,7 +474,7 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
 }
 
 // wgmma shared-memory matrix descriptor: start address, leading and stride
-// byte offsets (16 B units), swizzle layout (1 = 128 B, 2 = 64 B).
+// byte offsets (16 B units), swizzle layout (1 = 128 B, 2 = 64 B, 3 = 32 B).
 __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
                                               uint32_t sbo, uint64_t layout) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
@@ -521,6 +571,24 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// The same with N = 80.
+__device__ __forceinline__ void wgmma_rs(float (&d)[40],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n"
+      "}\n"
+      : FA_F16(0), FA_F16(16), FA_F4(32), FA_F4(36)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // The same with N = 128.
 __device__ __forceinline__ void wgmma_rs(float (&d)[64],
                                          const uint32_t (&a)[4],
@@ -575,11 +643,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // O (64 x HD) += P V for one warpgroup. P is the S accumulator fragment
 // rounded to bf16: columns 16 kk .. 16 kk + 15 of S (its n8 chunks 2 kk and
-// 2 kk + 1) are exactly the A-register fragment of the kk-th K step.
+// 2 kk + 1) are exactly the A-register fragment of the kk-th K step. O is
+// held as kPVGroups accumulators of kPVCols columns, one wgmma each a step.
 template <int HD>
-__device__ __forceinline__ void pv_product(float (&o)[HD / 2],
-                                           const float (&p)[Tile<HD>::kBK / 2],
-                                           uint32_t v_tile) {
+__device__ __forceinline__ void pv_product(
+    float (&o)[Tile<HD>::kPVGroups][Tile<HD>::kPVCols / 2],
+    const float (&p)[Tile<HD>::kBK / 2], uint32_t v_tile) {
   using T = Tile<HD>;
   uint32_t a[T::kBK / 16][4];
 #pragma unroll
@@ -589,17 +658,23 @@ __device__ __forceinline__ void pv_product(float (&o)[HD / 2],
     a[kk][2] = pack_bf16(p[8 * kk + 4], p[8 * kk + 5]);  // row g,   k 2t+8
     a[kk][3] = pack_bf16(p[8 * kk + 6], p[8 * kk + 7]);  // row g+8, k 2t+8
   }
-  fence_regs(o);
+#pragma unroll
+  for (int g = 0; g < T::kPVGroups; ++g) fence_regs(o[g]);
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < T::kBK / 16; ++kk)
-    // V rows 16 kk .. 16 kk + 15 (two 8-row atom groups, kSBO apart); the
-    // hd = 128 panels are kKVPanelBytes apart (the leading byte offset).
-    wgmma_rs(o, a[kk],
-             gmma_desc(v_tile + kk * 16 * T::kRowBytes, T::kKVPanelBytes,
-                       T::kSBO, T::kLayout));
+#pragma unroll
+    for (int g = 0; g < T::kPVGroups; ++g)
+      // V rows 16 kk .. 16 kk + 15 (two 8-row atom groups, kSBO apart) of
+      // the product's kPVPanels panels (kKVPanelBytes apart: the leading
+      // byte offset).
+      wgmma_rs(o[g], a[kk],
+               gmma_desc(v_tile + g * T::kPVPanels * T::kKVPanelBytes +
+                             kk * 16 * T::kRowBytes,
+                         T::kKVPanelBytes, T::kSBO, T::kLayout));
   wgmma_commit_and_wait();
-  fence_regs(o);
+#pragma unroll
+  for (int g = 0; g < T::kPVGroups; ++g) fence_regs(o[g]);
 }
 
 template <int HD>
@@ -682,12 +757,17 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
   const int wp_hi = wp_lo + kWgRows - 1;
   const uint32_t q_tile = sq + wg * kWgRows * T::kRowBytes;
 
+  // O's columns 8 j + 2 t4 + {0, 1} (rows a, b) of PV group j / kJ lie in
+  // o_acc[j / kJ][4 (j % kJ) + {0, 1} ({2, 3})].
+  constexpr int kJ = T::kPVCols / 8;
   float s_acc[kTileK / 2];
-  float o_acc[HD / 2];
+  float o_acc[T::kPVGroups][T::kPVCols / 2];
 #pragma unroll
   for (int i = 0; i < kTileK / 2; ++i) s_acc[i] = 0.0f;
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) o_acc[i] = 0.0f;
+  for (int g = 0; g < T::kPVGroups; ++g)
+#pragma unroll
+    for (int i = 0; i < T::kPVCols / 2; ++i) o_acc[g][i] = 0.0f;
   float m_a = -INFINITY, m_b = -INFINITY;  // running max, raw score units
   float l_a = 0.0f, l_b = 0.0f;  // this thread's share of the row sums
 
@@ -751,10 +831,11 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
       m_b = mx_b;
 #pragma unroll
       for (int j = 0; j < HD / 8; ++j) {
-        o_acc[4 * j] *= alpha_a;
-        o_acc[4 * j + 1] *= alpha_a;
-        o_acc[4 * j + 2] *= alpha_b;
-        o_acc[4 * j + 3] *= alpha_b;
+        float* oj = o_acc[j / kJ] + 4 * (j % kJ);
+        oj[0] *= alpha_a;
+        oj[1] *= alpha_a;
+        oj[2] *= alpha_b;
+        oj[3] *= alpha_b;
       }
       pv_product<HD>(o_acc, s_acc, sv + s * T::kKVBytes);
     }
@@ -773,12 +854,13 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
   __nv_bfloat16* ob = o + static_cast<size_t>(b) * Sq * q_row + h * HD + 2 * t4;
 #pragma unroll
   for (int j = 0; j < HD / 8; ++j) {
+    const float* oj = o_acc[j / kJ] + 4 * (j % kJ);
     if (row_a < Sq)
       *reinterpret_cast<uint32_t*>(ob + row_a * q_row + 8 * j) =
-          pack_bf16(o_acc[4 * j] * inv_a, o_acc[4 * j + 1] * inv_a);
+          pack_bf16(oj[0] * inv_a, oj[1] * inv_a);
     if (row_a + 8 < Sq)
       *reinterpret_cast<uint32_t*>(ob + (row_a + 8) * q_row + 8 * j) =
-          pack_bf16(o_acc[4 * j + 2] * inv_b, o_acc[4 * j + 3] * inv_b);
+          pack_bf16(oj[2] * inv_b, oj[3] * inv_b);
   }
 }
 
@@ -840,9 +922,10 @@ int launch_sm90(const void* q, const void* k, const void* v, void* o, int B,
                 int Sq, int Sk, int H, int KV, int q_offset, int causal,
                 int window, float scale, cudaStream_t stream) {
   using T = Tile<HD>;
-  constexpr CUtensorMapSwizzle kSwizzle = T::kRowBytes == 128
-                                              ? CU_TENSOR_MAP_SWIZZLE_128B
-                                              : CU_TENSOR_MAP_SWIZZLE_64B;
+  constexpr CUtensorMapSwizzle kSwizzle =
+      T::kRowBytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+      : T::kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                           : CU_TENSOR_MAP_SWIZZLE_32B;
   CUtensorMap tm_q, tm_k, tm_v;
   int rc = encode_map(&tm_q, q, B, Sq, H, HD, T::kPanelCols, kBQ90, kSwizzle);
   if (rc == 0)
@@ -867,7 +950,8 @@ int launch_sm90(const void* q, const void* k, const void* v, void* o, int B,
 
 // q, o: (B, Sq, H, hd); k, v: (B, Sk, KV, hd); contiguous, 16-byte aligned,
 // one dtype: 0 = float32 (the CUDA-core kernel), 1 = bfloat16 (the wgmma +
-// TMA kernel). hd in {32, 64, 128}, H % KV == 0, window <= 0 for none.
+// TMA kernel). hd in {32, 64, 80, 128, 256} in both, H % KV == 0, window
+// <= 0 for none; any other hd returns cudaErrorInvalidValue.
 // Launches on `stream` and returns 0 when the launch was accepted, else a
 // cudaError_t, or kTensorMapError (30000) + the CUresult of a tensor map
 // that could not be encoded.
@@ -888,8 +972,14 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     case 64:
       return launch_sm90<64>(q, k, v, o, B, Sq, Sk, H, KV, q_offset, causal,
                              window, scale, s);
+    case 80:
+      return launch_sm90<80>(q, k, v, o, B, Sq, Sk, H, KV, q_offset, causal,
+                             window, scale, s);
     case 128:
       return launch_sm90<128>(q, k, v, o, B, Sq, Sk, H, KV, q_offset, causal,
+                              window, scale, s);
+    case 256:
+      return launch_sm90<256>(q, k, v, o, B, Sq, Sk, H, KV, q_offset, causal,
                               window, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -25,7 +25,10 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 
-HEAD_DIMS = (32, 64, 128)
+# The head dims the kernel is instantiated at, in both dtypes: those of the
+# zoo's attention paths (qwen2-0.5b 64, zamba2-2.7b's shared block 80,
+# gemma-7b 256) and the smoke configs' 32, and 128. Any other raises.
+HEAD_DIMS = (32, 64, 80, 128, 256)
 # float32 goes to the CUDA-core kernel, bfloat16 to the wgmma + TMA kernel.
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # The launcher returns this plus a CUresult when it cannot encode a tensor

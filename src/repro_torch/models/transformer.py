@@ -1,15 +1,19 @@
-"""The decoder stack of the LLM zoo, for the attention and mamba1 mixers
-with a dense channel mixer or none. Port of repro/models/transformer.py.
+"""The decoder stack of the LLM zoo: the attention, mamba1 and mamba2
+mixers with a dense channel mixer or none, and zamba2's tied shared
+attention block. Port of repro/models/transformer.py.
 
 Layer parameters are stacked (n_groups, scan_group, ...) as in the
 reference, so its parameters carry over as a plain copy (convert.py). A
 Python loop over the layers replaces the reference's `lax.scan` and remat
-(PyTorch runs eagerly; nothing here trains yet).
+(PyTorch runs eagerly; nothing here trains yet). With `shared_attn_every`
+set, one shared block (attention + MLP, parameters `params["shared"]`)
+runs after each scan group, as in the reference, with a KV cache of its
+own for each group (`cache["shared"]`).
 
 The reference's other branches are not ported yet and raise
-NotImplementedError naming the ROADMAP item that ports them: the mamba2
-mixer, the MoE channel mixer, the zamba2 shared block, the modality
-prefix and an untied LM head. `loss_fn` waits for the training slice.
+NotImplementedError naming the ROADMAP item that ports them: the MoE
+channel mixer, the modality prefix and an untied LM head. `loss_fn` waits
+for the training slice.
 """
 from __future__ import annotations
 
@@ -17,10 +21,11 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import AttentionConfig, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as m1
+from repro_torch.models import mamba2 as m2
 from repro_torch.models.mlp import init_mlp, mlp_forward
 from repro_torch.models.norms import init_rms_norm, rms_norm
 from repro_torch.utils.tree import tree_map
@@ -32,23 +37,30 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raises NotImplementedError for the parts of `cfg` the port does not
     run yet."""
     todo = []
-    if cfg.mixer not in ("attention", "mamba1"):
-        todo.append(f"the {cfg.mixer} mixer (ROADMAP.md queue 1 item 15: "
-                    "models/mamba2.py)")
+    if cfg.mixer not in ("attention", "mamba1", "mamba2"):
+        todo.append(f"the {cfg.mixer!r} mixer")
     if cfg.mlp not in ("dense", "none"):
         todo.append(f"the {cfg.mlp!r} channel mixer (ROADMAP.md queue 1 item "
-                    "15: models/moe.py)")
-    if cfg.shared_attn_every:
-        todo.append("the shared attention block (ROADMAP.md queue 1 item 15)")
+                    "15.4: models/moe.py)")
     if cfg.modality:
-        todo.append("the modality prefix (ROADMAP.md queue 1 item 15)")
+        todo.append("the modality prefix (ROADMAP.md queue 1 items 15.3, "
+                    "15.4)")
     if not cfg.tie_embeddings:
-        todo.append("an untied LM head (ROADMAP.md queue 1 item 15)")
+        todo.append("an untied LM head (ROADMAP.md queue 1 item 15.3)")
     if cfg.dtype not in _DTYPES:
         todo.append(f"dtype {cfg.dtype!r}")
     if todo:
         raise NotImplementedError(
             f"{cfg.name}: not yet ported to repro_torch: " + "; ".join(todo))
+
+
+def shared_attn_cfg(cfg: ModelConfig) -> AttentionConfig:
+    """The shared block's attention (the reference's `_shared_attn_cfg`):
+    MHA of `shared_attn_heads` heads of d_model / heads each (zamba2-2.7b:
+    32 heads of 80)."""
+    hd = cfg.d_model // cfg.shared_attn_heads
+    return AttentionConfig(n_heads=cfg.shared_attn_heads,
+                           n_kv_heads=cfg.shared_attn_heads, head_dim=hd)
 
 
 # ---------------------------------------------------------------------------
@@ -60,8 +72,10 @@ def _init_layer(cfg: ModelConfig, gen: torch.Generator) -> Dict:
     p: Dict = {"ln1": init_rms_norm(cfg.d_model, device=gen.device)}
     if cfg.mixer == "attention":
         p["attn"] = attn.init_attention(gen, cfg.d_model, cfg.attention)
-    else:
+    elif cfg.mixer == "mamba1":
         p["mamba"] = m1.init_mamba1(gen, cfg.d_model, cfg.ssm)
+    else:
+        p["mamba"] = m2.init_mamba2(gen, cfg.d_model, cfg.ssm)
     if cfg.mlp == "dense":
         p["ln2"] = init_rms_norm(cfg.d_model, device=gen.device)
         p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff)
@@ -94,6 +108,13 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device=None) -> Dict:
         tree_map(lambda dst, src: dst.copy_(src),
                  _layer(params["layers"], cfg, idx), layer)
         del layer
+    if cfg.shared_attn_every:
+        params["shared"] = tree_map(lambda t: t.to(dev), {
+            "ln1": init_rms_norm(d, device=gen.device),
+            "attn": attn.init_attention(gen, d, shared_attn_cfg(cfg)),
+            "ln2": init_rms_norm(d, device=gen.device),
+            "mlp": init_mlp(gen, d, 4 * d),
+        })
     params["ln_f"] = init_rms_norm(d, device=dev)
     return params
 
@@ -115,9 +136,32 @@ def _layer_forward(cfg: ModelConfig, p: Dict, x, positions, impl: str):
     if cfg.mixer == "attention":
         h = attn.attention_forward(p["attn"], h, cfg.attention, positions,
                                    impl)
-    else:
+    elif cfg.mixer == "mamba1":
         h = m1.mamba1_forward(p["mamba"], h, cfg.ssm, impl)
+    else:
+        h = m2.mamba2_forward(p["mamba"], h, cfg.ssm)
     return _channel_mix(cfg, p, x + h)
+
+
+def _shared_mlp(cfg: ModelConfig, p: Dict, x):
+    """The shared block's pre-norm MLP with its residual."""
+    return x + mlp_forward(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps),
+                           cfg.act)
+
+
+def _shared_block(cfg: ModelConfig, p: Dict, x, positions, impl: str):
+    """The tied shared attention + MLP block (full sequence, no cache)."""
+    x = x + attn.attention_forward(
+        p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps), shared_attn_cfg(cfg),
+        positions, impl)
+    return _shared_mlp(cfg, p, x)
+
+
+def _group_end(cfg: ModelConfig, idx: int) -> Optional[int]:
+    """The scan group that layer `idx` closes when a shared block follows
+    it (after every group, as in the reference), else None."""
+    g, i = divmod(idx, cfg.scan_group)
+    return g if cfg.shared_attn_every and i == cfg.scan_group - 1 else None
 
 
 def _channel_mix(cfg: ModelConfig, p: Dict, x):
@@ -154,6 +198,8 @@ def forward(cfg: ModelConfig, params: Dict, tokens, impl: str = "plain",
     for idx in range(cfg.n_layers):
         x = _layer_forward(cfg, _layer(params["layers"], cfg, idx), x,
                            positions, impl)
+        if _group_end(cfg, idx) is not None:
+            x = _shared_block(cfg, params["shared"], x, positions, impl)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return compute_logits(cfg, params, x), aux, prefix_len
 
@@ -168,20 +214,32 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,
     """Stacked per-layer caches on `device` (cuda unless "cpu" is asked
     for), and the next position `pos` as a host int. Attention: KV leaves
     (G, sg, B, L, KV, hd) in bf16. mamba1: the conv tail (G, sg, B,
-    d_conv - 1, d_in) and the state h (G, sg, B, d_in, N), both float32
-    (`max_len` is not read)."""
+    d_conv - 1, d_in) and the state h (G, sg, B, d_in, N); mamba2: the
+    conv tail (G, sg, B, d_conv - 1, conv_dim) and h (G, sg, B, H, P, N),
+    all float32 (`max_len` is not read). With a shared block, its G KV
+    caches (G, B, L, heads, hd) in bf16 under "shared"."""
     check_supported(cfg)
     dev = resolve_device(device)
     if cfg.mixer == "attention":
         one = attn.init_kv_cache(batch, max_len, cfg.attention,
                                  device="meta")
-    else:
+    elif cfg.mixer == "mamba1":
         one = m1.init_mamba1_cache(batch, cfg.d_model, cfg.ssm,
+                                   device="meta")
+    else:
+        one = m2.init_mamba2_cache(batch, cfg.d_model, cfg.ssm,
                                    device="meta")
     G, sg = cfg.n_scan_groups, cfg.scan_group
     layers = {name: torch.zeros((G, sg, *t.shape), dtype=t.dtype, device=dev)
               for name, t in one.items()}
-    return {"layers": layers, "pos": 0}
+    cache: Dict = {"layers": layers, "pos": 0}
+    if cfg.shared_attn_every:
+        one = attn.init_kv_cache(batch, max_len, shared_attn_cfg(cfg),
+                                 device="meta")
+        cache["shared"] = {
+            name: torch.zeros((G, *t.shape), dtype=t.dtype, device=dev)
+            for name, t in one.items()}
+    return cache
 
 
 def _layer_decode(cfg: ModelConfig, p: Dict, x, pos: int, layer_cache):
@@ -189,8 +247,11 @@ def _layer_decode(cfg: ModelConfig, p: Dict, x, pos: int, layer_cache):
     if cfg.mixer == "attention":
         h, layer_cache = attn.attention_decode_step(
             p["attn"], h, cfg.attention, pos, layer_cache)
-    else:
+    elif cfg.mixer == "mamba1":
         h, layer_cache = m1.mamba1_decode_step(p["mamba"], h, cfg.ssm,
+                                               layer_cache)
+    else:
+        h, layer_cache = m2.mamba2_decode_step(p["mamba"], h, cfg.ssm,
                                                layer_cache)
     return _channel_mix(cfg, p, x + h), layer_cache
 
@@ -205,6 +266,14 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict, tokens,
     for idx in range(cfg.n_layers):
         x, _ = _layer_decode(cfg, _layer(params["layers"], cfg, idx), x, pos,
                              _layer(cache["layers"], cfg, idx))
+        g = _group_end(cfg, idx)
+        if g is not None:
+            p_s = params["shared"]
+            a, _ = attn.attention_decode_step(
+                p_s["attn"], rms_norm(x, p_s["ln1"], cfg.norm_eps),
+                shared_attn_cfg(cfg), pos,
+                tree_map(lambda t: t[g], cache["shared"]))
+            x = _shared_mlp(cfg, p_s, x + a)
     cache["pos"] = pos + 1
     return compute_logits(cfg, params, x), cache
 
@@ -215,13 +284,13 @@ def prefill(cfg: ModelConfig, params: Dict, tokens,
     """Full-sequence forward that fills all caches (in place). Returns
     (logits of the last position (B, 1, V), cache).
 
-    A mamba1 prompt needs at least d_conv - 1 tokens: a shorter one would
+    A mamba prompt needs at least d_conv - 1 tokens: a shorter one would
     leave a conv tail that decode cannot use (the reference stores it all
-    the same), so it raises ValueError."""
+    the same, or fails to), so it raises ValueError."""
     check_supported(cfg)
     x, _ = embed_inputs(cfg, params, tokens)
     B, S = x.shape[:2]
-    if cfg.mixer == "mamba1" and S < cfg.ssm.d_conv - 1:
+    if cfg.mixer != "attention" and S < cfg.ssm.d_conv - 1:
         raise ValueError(f"{cfg.name}: a prompt of {S} tokens is shorter "
                          f"than d_conv - 1 = {cfg.ssm.d_conv - 1}")
     positions = _positions(B, S, x.device)
@@ -234,10 +303,22 @@ def prefill(cfg: ModelConfig, params: Dict, tokens,
             h, _ = attn.attention_prefill(p["attn"], h, cfg.attention,
                                           positions, c, impl)
         else:
-            h, (conv_tail, hst) = m1.mamba1_forward(
-                p["mamba"], h, cfg.ssm, impl, return_state=True)
+            if cfg.mixer == "mamba1":
+                h, (conv_tail, hst) = m1.mamba1_forward(
+                    p["mamba"], h, cfg.ssm, impl, return_state=True)
+            else:
+                h, (conv_tail, hst) = m2.mamba2_forward(
+                    p["mamba"], h, cfg.ssm, return_state=True)
             c["conv"].copy_(conv_tail)
             c["h"].copy_(hst)
         x = _channel_mix(cfg, p, x + h)
+        g = _group_end(cfg, idx)
+        if g is not None:
+            p_s = params["shared"]
+            a, _ = attn.attention_prefill(
+                p_s["attn"], rms_norm(x, p_s["ln1"], cfg.norm_eps),
+                shared_attn_cfg(cfg), positions,
+                tree_map(lambda t: t[g], cache["shared"]), impl)
+            x = _shared_mlp(cfg, p_s, x + a)
     cache["pos"] = S
     return compute_logits(cfg, params, x[:, -1:]), cache

@@ -48,6 +48,13 @@ CASES = {
     # Rows whose window holds no key (positions >= 40 - 1 + 32) give zeros.
     "rows_without_keys": (1, 64, 40, 2, 1, 64, "float32", True, 32, 20),
     "not_causal": (1, 100, 100, 2, 1, 32, "float32", False, None, 0),
+    # The zoo's other head dims: zamba2-2.7b's shared block (80) and
+    # gemma-7b (256, MHA).
+    "hd80": (2, 128, 128, 4, 4, 80, "float32", True, None, 0),
+    "hd80_window_bf16": (1, 200, 200, 2, 2, 80, "bfloat16", True, 32, 0),
+    "hd256": (2, 128, 128, 4, 4, 256, "float32", True, None, 0),
+    "hd256_q_offset_bf16": (2, 64, 200, 4, 2, 256, "bfloat16", True, None,
+                            136),
 }
 
 
@@ -156,6 +163,16 @@ HOPPER_CASES = {
     "hd32_s2048": (1, 2048, 2048, 4, 2, 32, True, None, 0),
     "hd128_s2048": (1, 2048, 2048, 4, 2, 128, True, None, 0),
     "qwen2_heads_b4": (4, 2048, 2048, 14, 2, 64, True, None, 0),
+    # hd 80: five 16-column panels, 128-key tiles, one PV product of N = 80;
+    # hd 256: four 64-column panels, 64-key tiles, two PV products of 128.
+    "hd80_s200": (2, 200, 200, 4, 4, 80, True, None, 0),
+    "hd80_q_offset_window": (1, 100, 300, 4, 2, 80, True, 64, 200),
+    "hd80_not_causal": (1, 100, 130, 2, 1, 80, False, 16, 0),
+    "hd80_s2048": (1, 2048, 2048, 4, 4, 80, True, None, 0),
+    "hd256_s200": (2, 200, 200, 4, 4, 256, True, None, 0),
+    "hd256_q_offset_window": (1, 100, 300, 4, 2, 256, True, 64, 200),
+    "hd256_not_causal": (1, 100, 130, 2, 1, 256, False, 16, 0),
+    "hd256_s2048": (1, 2048, 2048, 4, 4, 256, True, None, 0),
 }
 WG_ROWS, BLOCK_ROWS = 64, 128  # a consumer warpgroup's and a block's rows
 
@@ -163,7 +180,7 @@ WG_ROWS, BLOCK_ROWS = 64, 128  # a consumer warpgroup's and a block's rows
 def _hopper_emulation(q, k, v, causal, window, q_offset):
     """flash_fwd_sm90 (csrc/flash_attention.cu) step by step, over all
     (batch, head) pairs at once: blocks of 128 query rows in two warpgroups
-    of 64, key tiles of 128 (64 at hd = 128) between the kernel's loop
+    of 64, key tiles of 128 (64 from hd = 128 up) between the kernel's loop
     bounds, rows past S zero-filled as TMA fills them, element masks only
     on the tiles the kernel masks, a warpgroup's tile skipped when it sees
     no key of it, the float32 online softmax in exp2 of scores scaled by
@@ -171,7 +188,7 @@ def _hopper_emulation(q, k, v, causal, window, q_offset):
     at the end (zeros where it is 0). Returns (B, Sq, H, hd) in bf16."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
-    bk = 64 if hd == 128 else 128
+    bk = 64 if hd >= 128 else 128  # Tile<HD>::kBK
     sl2 = torch.tensor(hd ** -0.5 * math.log2(math.e), dtype=torch.float32)
     n_qt = -(-Sq // BLOCK_ROWS)
     rep = H // KV

@@ -56,6 +56,35 @@ CASES = {
                          None, 0),
     "qwen2_heads_b4_bf16": (4, 2048, 2048, 14, 2, 64, torch.bfloat16, True,
                             None, 0),
+    # hd 80 (zamba2-2.7b's shared block: five 16-column panels under
+    # SWIZZLE_32B in bf16, a third column chunk on half the lanes in
+    # float32) and hd 256 (gemma-7b: four 64-column panels, 64-key tiles,
+    # two PV products in bf16; 2 rows a thread in float32), each causal,
+    # ragged and not causal, windowed with q_offset, and at S = 2048.
+    "hd80_f32": (2, 200, 200, 4, 4, 80, torch.float32, True, None, 0),
+    "hd80_bf16": (2, 200, 200, 4, 4, 80, torch.bfloat16, True, None, 0),
+    "hd80_not_causal_f32": (1, 100, 130, 2, 1, 80, torch.float32, False, 16,
+                            0),
+    "hd80_not_causal_bf16": (1, 100, 130, 2, 1, 80, torch.bfloat16, False,
+                             16, 0),
+    "hd80_q_offset_window_f32": (1, 100, 300, 4, 2, 80, torch.float32, True,
+                                 64, 200),
+    "hd80_q_offset_window_bf16": (1, 100, 300, 4, 2, 80, torch.bfloat16,
+                                  True, 64, 200),
+    "hd80_s2048_bf16": (1, 2048, 2048, 4, 4, 80, torch.bfloat16, True, None,
+                        0),
+    "hd256_f32": (2, 200, 200, 4, 4, 256, torch.float32, True, None, 0),
+    "hd256_bf16": (2, 200, 200, 4, 4, 256, torch.bfloat16, True, None, 0),
+    "hd256_not_causal_f32": (1, 100, 130, 2, 1, 256, torch.float32, False,
+                             16, 0),
+    "hd256_not_causal_bf16": (1, 100, 130, 2, 1, 256, torch.bfloat16, False,
+                              16, 0),
+    "hd256_q_offset_window_f32": (1, 100, 300, 4, 2, 256, torch.float32,
+                                  True, 64, 200),
+    "hd256_q_offset_window_bf16": (1, 100, 300, 4, 2, 256, torch.bfloat16,
+                                   True, 64, 200),
+    "hd256_s2048_bf16": (1, 2048, 2048, 4, 4, 256, torch.bfloat16, True,
+                         None, 0),
 }
 
 
@@ -84,7 +113,7 @@ def test_cuda_kernel_matches_plain_version(cuda_device, name):
     assert err <= ATOL[dtype], err
 
 
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", ops.HEAD_DIMS)
 def test_bf16_kernel_agrees_with_float32_kernel(cuda_device, hd):
     """The two kernels on the same bf16-representable inputs: the bf16
     kernel (tensor cores, P rounded to bf16, bf16 output) within the bf16

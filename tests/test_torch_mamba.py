@@ -152,9 +152,9 @@ def test_init_params_draws_the_list_then_stack_values(arch):
 
 def test_check_supported_still_refuses_unported_parts():
     cfg = registry.get_config(ARCH, smoke=True)
-    for bad, what in ((cfg.replace(mixer="mamba2"), "mamba2 mixer"),
-                      (cfg.replace(mlp="moe"), "'moe' channel mixer"),
-                      (cfg.replace(shared_attn_every=2), "shared attention"),
+    modality = j_registry.get_config("llava-next-34b", smoke=True).modality
+    for bad, what in ((cfg.replace(mlp="moe"), "'moe' channel mixer"),
+                      (cfg.replace(modality=modality), "modality prefix"),
                       (cfg.replace(tie_embeddings=False), "untied LM head")):
         with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP"):
             tfm.init_params(bad, torch.Generator(), device="cpu")

@@ -115,11 +115,11 @@ def test_registry_names_unported_archs_and_never_falls_back():
             registry.get_config(arch)
     with pytest.raises(KeyError, match="unknown arch"):
         registry.get_config("qwen2-0.6b")
-    mamba = j_registry.get_config("zamba2-2.7b", smoke=True)
-    t_mamba = registry.get_config(ARCH, smoke=True).replace(
-        mixer="mamba2", mlp="none", attention=None, ssm=mamba.ssm)
-    with pytest.raises(NotImplementedError, match="mamba2.*ROADMAP"):
-        tfm.init_params(t_mamba, torch.Generator(), device="cpu")
+    moe = j_registry.get_config("qwen3-moe-30b-a3b", smoke=True)
+    t_moe = registry.get_config(ARCH, smoke=True).replace(
+        mlp="moe", moe=moe.moe)
+    with pytest.raises(NotImplementedError, match="moe.*ROADMAP"):
+        tfm.init_params(t_moe, torch.Generator(), device="cpu")
 
 
 def test_to_torch_carries_init_params_unchanged(j_params, t_params):
