@@ -22,7 +22,10 @@ Phases (each prints its own lines; any failure exits non-zero):
      (the wgmma + TMA kernel), at head_dims 32, 64, 80, 128 and 256, timed
      at the prefill shapes of qwen2-0.5b, gemma-7b and zamba2-2.7b's shared
      block;
-     selective scan: 3e-5 of max(1, max |plain|)), then its time per launch
+     selective scan: 3e-5 of max(1, max |plain|); fold matmul: 1e-4 of
+     max(1, max |plain|) against torch.matmul at the Fig. 2 MNIST Study
+     group's product shapes, and its rows unmoved bit for bit by more rows,
+     by zeros appended to K and by its other route), then its time per launch
      beside the plain version's time, the card's bound for the same work
      and, where one PyTorch call computes the same function, that call's
      time; the scan also prints its resident warps an SM at the falcon
@@ -31,7 +34,10 @@ Phases (each prints its own lines; any failure exits non-zero):
   4. FL main path: the registered `mnist_paper` experiment with int8 uplink
      compression (the paper's MNIST CNN, M=10 clients), built on the card
      and run for 6 rounds in two chunks; the quantize kernel must have
-     launched on it once per round, and no other kernel; losses must be
+     launched on it once per round, the fold matmul (every product of the
+     CNN's local steps, FedAvg and eval) at least once, and no other
+     kernel (so on every FL path below; an uncompressed one launches the
+     fold matmul alone); losses must be
      finite and the uplink bits exact; then 36 more rounds timed in steady
      state (12 chunks of 3, no eval) and 3 under torch.profiler (device
      busy share, kernels by device time);
@@ -54,7 +60,7 @@ Phases (each prints its own lines; any failure exits non-zero):
      another member's noise; fleet s/round beside 4 x the s/round of one
      run, and a profiled fleet window; then
      `examples/quickstart_torch.py`'s main on the card through its fleet
-     summary (uncompressed: no kernel launches);
+     summary (uncompressed: the fold matmul alone launches);
   6. serve path: `qwen2-0.5b` at full width and depth (random weights from
      a seed), B=4 prompts of 2048 tokens, 32 generated tokens, through
      `serve.generate`; the flash kernel must launch once a layer in the
@@ -99,10 +105,32 @@ Phases (each prints its own lines; any failure exits non-zero):
  16. serve reference: as phase 14, for the `zamba2-2.7b` smoke config and
      a variant of it whose shared block has head_dim 80.
 
-Phases 10, 11 and 12 run right after phase 5, phases 13-16 after phase 9;
-quantize's `launches` in the JSON line are those of phases 4, 10, 11 and 12
-(a, b, c's guarded run and d), flash attention's those of phases 6, 13 and
-15 (24 + 28 + 9). The last lines are the
+ 17. the Study (examples/defl_vs_fedavg_torch.py's Fig. 2 comparison):
+     (a) DEFL (its plan, b* capped at 32), FedAvg (b=10, V=20) and Rand
+     ((16, 15) on MNIST, (64, 30) on CIFAR) under `uniform`, 2 seeds, at
+     full width (the paper's MNIST and CIFAR CNNs, M=10, 1,500 samples),
+     up to the twin's 12 rounds with its 90% early stop: one group each,
+     padded into its (V, b) envelope; the twin's rows printed; every
+     member's plan, rounds, sim_time, T_cm, T_cp, uplink bits and
+     participants must equal its own run alone's (a target_acc stop may
+     fall on another round only where the two evals straddle the
+     target); (b) the MNIST arms compressed: one quantize launch a round
+     for the whole group; each round of every member, from equal states,
+     against the same round alone: records exact, losses and params
+     within 1e-5 / 5e-4 for every member-round (bit identity printed),
+     and a planted control (FedAvg's and Rand's first members with their
+     envelope masks swapped) that must break the loss bound; the quantize
+     kernel at the group's row count against its plain version and bound;
+     (c) Study(bit_check=True) on the Fig. 2 MNIST group itself, which
+     probes all three arms (each padded) before its 1 round; (d) each
+     group's s/round beside the sum of its members' s/round alone, its
+     padding share, peak memory and a profiled round (none a gate).
+
+Phases 10, 11, 12 and 17 run right after phase 5, phases 13-16 after phase
+9; quantize's `launches` in the JSON line are those of phases 4, 10, 11, 12
+(a, b, c's guarded run and d) and 17 (b), the fold matmul's those of the
+same FL paths and of the quickstart twin and 17 (a, c), flash attention's
+those of phases 6, 13 and 15 (24 + 28 + 9). The last lines are the
 kernels' JSON record, the card's name and power limit, and
 {"ok": true, "device": {...}}. The script exits non-zero
 without a result when no CUDA card is available or the port's package
@@ -127,6 +155,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
+
+# The kernels of the FL paths: every product of the CNN's local steps, of
+# FedAvg and of eval is the fold matmul; a compressed round adds one
+# quantize launch.
+FL_KERNELS = ("quantize", "fold_matmul")
 
 # The FL phases' steady state: this many chunks of 3 rounds, each timed.
 STEADY_CHUNKS = 12
@@ -371,6 +404,114 @@ def phase_quantize_kernel(dev, card):
             "replaces": "src/repro/kernels/quantize/kernel.py:17",
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+# -- fold matmul ------------------------------------------------------------------
+
+# name: (batch, M, K, N, layout) at the Fig. 2 MNIST Study group's shapes
+# (phase 17: 6 members x 10 clients = 60 rows of the client axis, B_env 32):
+# a conv's forward (patches @ filter), its weight gradient (patches^T @
+# dz, K over samples x pixels), a bias gradient (a broadcast row of ones),
+# fc1's forward, weight and input gradients, the FedAvg sum over 10
+# clients of fc1's 1.6M weights (weights broadcast over 6 members), and a
+# ragged case. layout: "nn" both row-major, "tn" A transposed, "nt" B
+# transposed, "ones" A a broadcast row of ones, "wbc" A one row a batch
+# entry, broadcast.
+FOLD_CASES = {
+    "ragged": (3, 70, 33, 65, "nn"),
+    "conv2_fwd": (60, 6272, 800, 64, "nn"),
+    "conv2_wgrad": (60, 800, 6272, 64, "tn"),
+    "conv1_wgrad": (60, 25, 25088, 32, "tn"),
+    "conv2_bias_grad": (60, 1, 6272, 64, "ones"),
+    "fc1_fwd": (60, 32, 3136, 512, "nn"),
+    "fc1_wgrad": (60, 3136, 32, 512, "tn"),
+    "fc1_dgrad": (60, 32, 512, 3136, "nt"),
+    "fedavg_fc1": (6, 1, 10, 1605632, "wbc"),
+}
+FOLD_TIMED = "conv2_wgrad"
+FOLD_RTOL = 1e-4
+
+
+def fold_inputs(name, dev):
+    import torch
+    batch, M, K, N, layout = FOLD_CASES[name]
+    g = torch.Generator(device=dev).manual_seed(len(name))
+    if layout == "ones":
+        a = torch.ones((), device=dev).expand(batch, M, K)
+    elif layout == "wbc":
+        a = torch.rand((1, M, K), generator=g, device=dev).expand(batch, M, K)
+    elif layout == "tn":
+        a = torch.randn((batch, K, M), generator=g, device=dev).transpose(1, 2)
+    else:
+        a = torch.randn((batch, M, K), generator=g, device=dev)
+    if layout == "nt":
+        b = torch.randn((batch, N, K), generator=g, device=dev).transpose(1, 2)
+    else:
+        b = torch.randn((batch, K, N), generator=g, device=dev)
+    return a, b
+
+
+def phase_fold_matmul_kernel(dev, card):
+    """The fold matmul against its plain version (torch.matmul, TF32 off)
+    at the Study group's shapes, and its defining property: the rows of a
+    call do not move when it has more rows or K is padded with zeros."""
+    import torch
+    from repro_torch.kernels.fold_matmul import ops, ref
+    max_err, timed = 0.0, {}
+    for name, (batch, M, K, N, layout) in FOLD_CASES.items():
+        a, b = fold_inputs(name, dev)
+        c = ops.fold_matmul(a, b)
+        torch.cuda.synchronize()
+        plain = ref.fold_matmul_ref(a, b)
+        err = float((c - plain).abs().max())
+        scale = max(1.0, float(plain.abs().max()))
+        max_err = max(max_err, err)
+        # More rows (M), and K padded with zeros: the first rows agree bit
+        # for bit.
+        m = max(1, M // 2)
+        half = ops.fold_matmul(a[:, :m], b)
+        pad = 16 + K % 16
+        a_pad = torch.cat([a, a.new_zeros(batch, M, pad)], dim=2)
+        b_pad = torch.cat([b, b.new_zeros(batch, pad, N)], dim=1)
+        padded = ops.fold_matmul(a_pad, b_pad)
+        # The other route gives the same bits.
+        route = ops.route_for(batch, M, N)
+        other = ops.fold_matmul(a, b, route="rows" if route == "tiles"
+                                else "tiles")
+        stable = bool(torch.equal(half, c[:, :m])) and bool(
+            torch.equal(padded, c)) and bool(torch.equal(other, c))
+        print(f"[kernel] fold_matmul {name} ({batch}, {M}, {K}) @ ({batch}, "
+              f"{K}, {N}) {layout}, {route} route: max |kernel - plain| "
+              f"{err:.3g} (scale {scale:.3g}, tol {FOLD_RTOL:g} of it); rows "
+              f"unmoved by more rows, by {pad} zero k and by the other "
+              f"route: {stable}", flush=True)
+        if not err <= FOLD_RTOL * scale or not stable:
+            raise SystemExit(f"fold_matmul disagrees or is not stable on "
+                             f"{name}")
+        ms = time_ms(lambda: ops.fold_matmul(a, b), warmup=2, calls=5, reps=5)
+        plain_ms = time_ms(lambda: ref.fold_matmul_ref(a, b), warmup=2,
+                           calls=5, reps=5)
+        library_ms = time_ms(lambda: torch.bmm(a, b), warmup=2, calls=5,
+                             reps=5)
+        a_elems = (1 if layout == "ones" else M * K if layout == "wbc"
+                   else batch * M * K)
+        n_bytes = 4 * (a_elems + batch * K * N + batch * M * N)
+        bound_ms, bound_by = bound(n_bytes, 2 * batch * M * N * K,
+                                   FP32_OPS_PER_S)
+        print(f"[kernel] fold_matmul {name} on {card}: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, torch.bmm {library_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of "
+              f"bound", flush=True)
+        timed[name] = (ms, plain_ms, bound_ms, bound_by, library_ms)
+        del a, b, c, plain, half, a_pad, b_pad, padded, other
+    ms, plain_ms, bound_ms, bound_by, library_ms = timed[FOLD_TIMED]
+    return {"name": "fold_matmul", "route": "cuda",
+            "source": "src/repro_torch/kernels/fold_matmul/csrc/"
+                      "fold_matmul.cu",
+            "replaces": "src/repro/models/cnn.py:82",
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
 
 
 # -- flash attention -----------------------------------------------------------
@@ -760,16 +901,20 @@ FLEET_SEEDS, CONTRACT_SEEDS = range(4), range(4, 8)
 FLEET_LOSS_RTOL, FLEET_PARAM_ATOL = 1e-5, 5e-4
 
 
+# The fields of a RoundRecord that a member's run alone fixes exactly.
+RECORD_FIELDS = ("round", "sim_time", "T_cm", "T_cp", "uplink_bits",
+                 "n_participants", "rejected")
+
+
+def _records(res):
+    return [tuple(getattr(r, f) for f in RECORD_FIELDS) for r in res.history]
+
+
 def _gaps(a, b):
     """(clock, bits, participants and rounds equal, max relative
     train-loss gap, max param gap, bit-identical) of two SimResults."""
     from repro_torch.utils.tree import leaves
-    exact = len(a.history) == len(b.history) and all(
-        (x.round, x.sim_time, x.T_cm, x.T_cp, x.uplink_bits,
-         x.n_participants, x.rejected)
-        == (y.round, y.sim_time, y.T_cm, y.T_cp, y.uplink_bits,
-            y.n_participants, y.rejected)
-        for x, y in zip(a.history, b.history))
+    exact = _records(a) == _records(b)
     loss = max(abs(x.train_loss - y.train_loss) / abs(y.train_loss)
                for x, y in zip(a.history, b.history))
     pa, pb = leaves(a.params), leaves(b.params)
@@ -912,7 +1057,7 @@ def phase_fl_fleet(counters):
 
 def phase_quickstart(counters):
     """examples/quickstart_torch.py's main on the card, through its fleet
-    summary (uncompressed: no kernel of the port launches)."""
+    summary (uncompressed: the fold matmul launches, no other kernel)."""
     import importlib.util
     path = Path(__file__).resolve().parent / "examples" / "quickstart_torch.py"
     spec = importlib.util.spec_from_file_location("quickstart_torch", path)
@@ -926,12 +1071,11 @@ def phase_quickstart(counters):
     summary = fleet.summary()
     print(f"[quickstart] examples/quickstart_torch.py main(device='cuda') in "
           f"{time.perf_counter() - t0:.2f} s, launches {launches}", flush=True)
-    if any(launches.values()):
-        raise SystemExit(f"kernels launched on the uncompressed quickstart: "
-                         f"{launches}")
+    _check_uncompressed("quickstart", launches)
     if not (len(res.history) == 5 and len(fleet) == 4
             and all(math.isfinite(v) for v in summary.values())):
         raise SystemExit(f"the quickstart twin did not finish: {summary}")
+    return launches
 
 
 # -- edge scenarios and faults (phase 12) -----------------------------------------
@@ -992,6 +1136,15 @@ def _launched(counters, fn):
         ops.launches = 0
     out = fn()
     return out, {name: ops.launches for name, ops in counters.items()}
+
+
+def _check_uncompressed(tag, launches):
+    """An uncompressed FL path: the fold matmul launches (every product of
+    the CNN's local steps, FedAvg and eval), no other kernel does."""
+    if not launches["fold_matmul"] or any(
+            n for k, n in launches.items() if k != "fold_matmul"):
+        raise SystemExit(f"[{tag}] an uncompressed FL path must launch the "
+                         f"fold matmul and nothing else: {launches}")
 
 
 def _check_quantize_rounds(tag, launches, rounds):
@@ -1178,6 +1331,371 @@ def phase_dropout_fleet(counters, card):
           f"{FLEET_SEEDS[1]}'s noise {[float(f'{g:.3g}') for g in wrong]}",
           flush=True)
     return launches
+
+
+# -- the Study: DEFL vs FedAvg vs Rand (phase 17) ------------------------------------
+
+# (a): the twin's Fig. 2 comparison, one scenario, FIG2_SEEDS seeds, up to
+# FIG2_ROUNDS rounds (the twin's full run; the members stop at its 90%
+# target accuracy).
+FIG2_SCENARIO = "uniform"
+FIG2_SEEDS = 2
+FIG2_ROUNDS = 12
+# (b): rounds of the compressed MNIST group, and of its per-round member
+# contract from equal states; (d): rounds in each timed window.
+STUDY_ROUNDS = 4
+STUDY_TIMED_ROUNDS = 3
+
+
+def _load_example(name):
+    import importlib.util
+    path = Path(__file__).resolve().parent / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _stop_explained(short, long, target):
+    """A target_acc stop that falls on another round: the shorter run
+    stopped at an eval that reached `target` where the longer run's eval
+    of the same round did not (test_acc follows the params, which the
+    member contract holds to a bound, not to the bit)."""
+    if not short.history:
+        return False
+    last = short.history[-1]
+    other = long.history[len(short.history) - 1]
+    return (last.test_acc is not None and last.test_acc >= target
+            and other.test_acc is not None and other.test_acc < target)
+
+
+def _member_vs_alone(tag, label, seed, got, alone, target):
+    """Gate a study member against its simulator's run alone: the records
+    exact where both ran, and the same number of rounds unless a
+    target_acc stop straddles the target between them."""
+    a, b = _records(got), _records(alone)
+    n = min(len(a), len(b))
+    exact = a[:n] == b[:n]
+    same_rounds = len(a) == len(b)
+    note = ""
+    if not same_rounds:
+        short, long = (got, alone) if len(a) < len(b) else (alone, got)
+        if not _stop_explained(short, long, target):
+            raise SystemExit(
+                f"[{tag}] {label} seed {seed}: {len(a)} rounds in the study, "
+                f"{len(b)} alone, not explained by a target_acc stop")
+        note = (f" (rounds {len(a)} vs {len(b)}: test_acc "
+                f"{short.history[-1].test_acc} vs "
+                f"{long.history[len(short.history) - 1].test_acc} at round "
+                f"{len(short.history)} across the target {target})")
+    print(f"[{tag}] {label} seed {seed}: b={got.fed.batch_size} "
+          f"V={got.fed.local_rounds} rounds {len(a)} (alone {len(b)}), "
+          f"records exact {exact}, final acc {got.history[-1].test_acc} "
+          f"(alone {alone.history[-1].test_acc}){note}", flush=True)
+    if not exact:
+        raise SystemExit(f"[{tag}] {label} seed {seed}: clock, bits or "
+                         "participants differ from its run alone")
+    return same_rounds
+
+
+def _check_plans(tag, study, sims):
+    """Each arm's simulator runs its own analytic plan: the DEFL arm the
+    solved (b*, V) (b* capped at the spec's batch_cap), the baselines their
+    fixed (b, V)."""
+    plans = study.plans()
+    for label, spec in study.arms:
+        plan, fed = plans[label], sims[label].fed
+        b = (min(plan.b, spec.batch_cap) if spec.plan and spec.batch_cap
+             else plan.b)
+        print(f"[{tag}] {label}: plan b={plan.b} V={plan.V} "
+              f"theta={plan.theta:.6f} T_round={plan.T_round:.6f}s "
+              f"overall_pred={plan.overall_pred:.4f}s; runs b={fed.batch_size}"
+              f" V={fed.local_rounds}", flush=True)
+        if (fed.batch_size, fed.local_rounds) != (b, plan.V) or \
+                dataclasses.asdict(fed) != dataclasses.asdict(
+                    spec.resolve_fed()):
+            raise SystemExit(f"[{tag}] arm {label} does not run its plan")
+
+
+def _padding_share(sims):
+    """The share of a group's local-step work (sample-steps: V_env x B_env
+    a client of each member) that is padding."""
+    V_env = max(s.fed.local_rounds for s in sims)
+    B_env = max(s.fed.batch_size for s in sims)
+    real = sum(s.fed.local_rounds * s.fed.batch_size for s in sims)
+    return 1.0 - real / (len(sims) * V_env * B_env), (V_env, B_env)
+
+
+def phase_fig2(counters, card):
+    """(a): the twin's Fig. 2 study at full width on MNIST and CIFAR, each
+    member against its own run alone."""
+    import torch
+    twin = _load_example("defl_vs_fedavg_torch")
+    print(twin.HEADER, flush=True)
+    out, all_launches = {}, []
+    for ds in ("mnist", "cifar"):
+        tag = f"fig2-{ds}"
+        study = twin.study_for(ds, FIG2_SCENARIO, seed=0,
+                               seeds=FIG2_SEEDS).replace(
+                                   max_rounds=FIG2_ROUNDS)
+        sims = study.build_sims()
+        if any(sim.device.type != "cuda" for sim in sims.values()):
+            raise SystemExit(f"[{tag}] the study was built off the card")
+        _check_plans(tag, study, sims)
+        members = [sims[label] for label, _ in study.arms
+                   for _ in study.seeds]
+        share, env = _padding_share(members)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, launches = _launched(counters, lambda: study.run(sims=sims))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for row in twin.rows_for(res, FIG2_SCENARIO, ds, len(study.seeds) > 1):
+            print(",".join(map(str, row)), flush=True)
+        rounds = max(r.rounds for label in res.labels for r in res[label])
+        print(f"[{tag}] Study of {len(study.arms)} arms x {len(study.seeds)} "
+              f"seeds on {card}: groups {res.groups}, envelope (V_env, B_env) "
+              f"= {env}, {len(members)} members x "
+              f"{sims['DEFL'].fed.n_devices} clients, {rounds} rounds in "
+              f"{wall:.2f} s (eval every round, warm-up included), padding "
+              f"{share:.1%} of the local-step work, launches {launches}",
+              flush=True)
+        if res.groups != (tuple(label for label, _ in study.arms),):
+            raise SystemExit(f"[{tag}] the arms did not form one group")
+        _check_uncompressed(tag, launches)
+        all_launches.append(launches)
+        for label, _ in study.arms:
+            sim = sims[label]
+            for i, seed in enumerate(study.seeds):
+                got = res[label][i]
+                if not all(math.isfinite(r.train_loss) for r in got.history):
+                    raise SystemExit(f"[{tag}] non-finite loss: {label}")
+                _, alone = sim.run(sim.init(seed), max_rounds=FIG2_ROUNDS,
+                                   eval_every=1, target_acc=study.target_acc)
+                _member_vs_alone(tag, label, seed, got, alone,
+                                 study.target_acc)
+        out[ds] = (study, sims, share, env)
+    return out, all_launches
+
+
+def _compressed_arms(study):
+    return study.replace(arms=[
+        (label, spec.replace(fed=dataclasses.replace(
+            spec.fed, compress_updates=True)))
+        for label, spec in study.arms])
+
+
+def _swapped_env_chunk(inner, C, a, b):
+    """The group chunk `inner` with the envelope masks of members a and b
+    swapped: a planted misalignment, member a running member b's (V, b)
+    masks and b running a's."""
+    def chunk(params, opt_state, gens, weights, data, idx, mask=None,
+              env=None):
+        order = list(range(env["v_mask"].shape[0] // C))
+        order[a], order[b] = order[b], order[a]
+        rows = [r for m in order for r in range(m * C, (m + 1) * C)]
+        return inner(params, opt_state, gens, weights, data, idx, mask,
+                     {k: v[rows] for k, v in env.items()})
+
+    return chunk
+
+
+def phase_study_compressed(counters, card, study):
+    """(b): the MNIST arms with int8 compression: one quantize launch a
+    round for the whole group, and each round of every member, from equal
+    states, against the same round alone: the records exact, the loss
+    within 1e-5 relative and the params within 5e-4 (Study.run's member
+    contract), for every member-round of every arm; whether it is also
+    bit-identical is printed. Then a planted control: the same group round
+    with two members' envelope masks swapped must break the contract."""
+    from repro_torch.federated import compression
+    from repro_torch.federated import study as study_mod
+    tag = "study-int8"
+    study = _compressed_arms(study).replace(max_rounds=STUDY_ROUNDS,
+                                            target_acc=None)
+    sims = study.build_sims()
+    _check_plans(tag, study, sims)
+    res, launches = _launched(counters, lambda: study.run(sims=sims))
+    rounds = max(r.rounds for label in res.labels for r in res[label])
+    n_members = len(study.arms) * len(study.seeds)
+    print(f"[{tag}] compressed MNIST study, {n_members} members, {rounds} "
+          f"rounds on {card}: launches {launches}", flush=True)
+    _check_quantize_rounds(tag, launches, rounds)
+    for label, _ in study.arms:
+        for i, seed in enumerate(study.seeds):
+            _, alone = sims[label].run(sims[label].init(seed),
+                                       max_rounds=STUDY_ROUNDS)
+            _member_vs_alone(tag, label, seed, res[label][i], alone, None)
+    # The member contract, round by round from equal states.
+    members = [(label, seed) for label, _ in study.arms
+               for seed in study.seeds]
+    states = {m: sims[m[0]].init(m[1]) for m in members}
+    held = {label: 0 for label, _ in study.arms}
+    identical = {label: 0 for label, _ in study.arms}
+    worst = [0.0, 0.0]
+    for r in range(STUDY_ROUNDS):
+        group = [study_mod._Member(arm=a, label=label, sim=sims[label],
+                                   seed=seed, state=states[label, seed])
+                 for a, (label, seed) in enumerate(members)]
+        step, n = _launched(counters, lambda: study_mod._run_group(
+            group, 1, 1, None, None))
+        _check_quantize_rounds(tag, n, 1)
+        for (label, seed), (st, got) in zip(members, step):
+            _, alone = sims[label].run(states[label, seed], max_rounds=1)
+            exact, loss, param, same = _gaps(got, alone)
+            worst = [max(worst[0], loss), max(worst[1], param)]
+            print(f"[{tag}] round {r + 1} {label} seed {seed}: member vs "
+                  f"alone loss {loss:.3g} params {param:.3g}, bit-identical "
+                  f"{same}", flush=True)
+            if not exact:
+                raise SystemExit(f"[{tag}] round {r + 1} of {label} seed "
+                                 f"{seed}: records differ from the round "
+                                 "alone")
+            if loss > FLEET_LOSS_RTOL or param > FLEET_PARAM_ATOL:
+                raise SystemExit(
+                    f"[{tag}] round {r + 1} of {label} seed {seed} breaks "
+                    f"the member contract: loss gap {loss:.3g}, param gap "
+                    f"{param:.3g} (tol {FLEET_LOSS_RTOL:g} / "
+                    f"{FLEET_PARAM_ATOL:g})")
+            held[label] += 1
+            identical[label] += same
+            states[label, seed] = st
+    print(f"[{tag}] member contract, {STUDY_ROUNDS} rounds from equal "
+          f"states: member-rounds held at {FLEET_LOSS_RTOL:g} / "
+          f"{FLEET_PARAM_ATOL:g} {held} (of {STUDY_ROUNDS * len(study.seeds)} "
+          f"an arm), bit-identical {identical}; largest gaps loss "
+          f"{worst[0]:.3g} params {worst[1]:.3g}", flush=True)
+    # The planted control: in round 1, FedAvg's first member runs Rand's
+    # masks and Rand's runs FedAvg's.
+    a = members.index(("FedAvg", study.seeds[0]))
+    b = members.index(("Rand", study.seeds[0]))
+    group = [study_mod._Member(arm=k, label=label, sim=sims[label],
+                               seed=seed)
+             for k, (label, seed) in enumerate(members)]
+    rep = group[0].sim
+    build = rep.build_chunk
+    rep.build_chunk = lambda envelope=False: _swapped_env_chunk(
+        build(envelope=envelope), rep.fed.n_devices, a, b)
+    try:
+        swapped = study_mod._run_group(group, 1, 1, None, None)
+    finally:
+        del rep.build_chunk  # the class's method again
+    for k in (a, b):
+        label, seed = members[k]
+        _, alone = sims[label].run(sims[label].init(seed), max_rounds=1)
+        planted = swapped[k][1].history[0].train_loss
+        gap = abs(planted - alone.history[0].train_loss) / abs(
+            alone.history[0].train_loss)
+        print(f"[{tag}] planted control, {label} seed {seed} run with the "
+              f"other arm's envelope masks: round-1 loss {planted:.6g} vs "
+              f"alone {alone.history[0].train_loss:.6g}, gap {gap:.3g} "
+              f"(contract {FLEET_LOSS_RTOL:g})", flush=True)
+        if not gap > FLEET_LOSS_RTOL:
+            raise SystemExit(f"[{tag}] the contract's loss bound does not "
+                             "catch a member run with another's masks")
+    sim = sims[study.arms[0][0]]
+    rows = n_members * sim.fed.n_devices * compression.n_rows(
+        sim.params(sim.init()))
+    return launches, rows
+
+
+def phase_study_quantize(dev, card, rows):
+    """The quantize kernel at the compressed group's row count (all its
+    members' clients in one launch): exact against its plain version,
+    timed beside it and its bound."""
+    import torch
+    from repro_torch.kernels.quantize import ops, ref
+    g = torch.Generator().manual_seed(17)
+    x = (torch.randn(rows, 1024, generator=g) * 1e-3).to(dev)
+    u = ref.stochastic_noise(torch.Generator(device=dev).manual_seed(3),
+                             x.shape)
+    q, sc = ops.quantize(x, u)
+    q_r, s_r = ref.quantize_ref(x, u)
+    bad = int((q != q_r).sum()) + int((sc != s_r).sum())
+    ms = time_ms(lambda: ops.quantize(x, u))
+    plain_ms = time_ms(lambda: ref.quantize_ref(x, u))
+    n_bytes = rows * 1024 * (4 + 4 + 1) + rows * 4
+    bound_ms, bound_by = bound(n_bytes, 7 * rows * 1024, FP32_OPS_PER_S)
+    print(f"[study-int8] quantize {rows}x1024 (the group's launch) on {card}: "
+          f"{bad} mismatches, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by}: {n_bytes / 1e6:.1f} MB), "
+          f"{bound_ms / ms:.1%} of bound", flush=True)
+    if bad:
+        raise SystemExit("quantize kernel disagrees at the study's rows")
+
+
+def phase_bit_check(counters, card, study, sims):
+    """(c): Study(bit_check=True) on the Fig. 2 MNIST group itself: before
+    the study runs, round 1 of each arm that the (V_env, B_env) envelope
+    pads (here all three: DEFL in V, FedAvg in b, Rand in both) runs as a
+    one-member group in that envelope and is held to the member contract
+    against a round of it alone; the probe raises if one breaks it. Then
+    the study's 1 round."""
+    probe = study.replace(max_rounds=1, target_acc=None, bit_check=True)
+    t0 = time.perf_counter()
+    res, launches = _launched(counters, lambda: probe.run(sims=sims))
+    env = _padding_share(list(sims.values()))[1]
+    padded = [label for label, sim in sims.items()
+              if (sim.fed.local_rounds, sim.fed.batch_size) != env]
+    print(f"[bit-check] Study(bit_check=True) on the Fig. 2 MNIST group on "
+          f"{card}: probed {padded} "
+          f"({', '.join(f'{k} b={v.fed.batch_size} V={v.fed.local_rounds}' for k, v in sims.items())}"
+          f" in the (V_env, B_env) = {env} envelope), passed, then 1 round; "
+          f"{time.perf_counter() - t0:.2f} s, launches {launches}",
+          flush=True)
+    if padded != [label for label, _ in study.arms] or res.groups != (
+            tuple(label for label, _ in study.arms),):
+        raise SystemExit("the bit_check probe did not probe every arm of "
+                         "the Fig. 2 MNIST group")
+    _check_uncompressed("bit-check", launches)
+    return launches
+
+
+def phase_study_cost(card, fig2):
+    """(d): each Fig. 2 group's steady s/round (no eval) beside the sum of
+    its members' s/round alone, its padding share, its peak memory and a
+    profiled window. None of these is a gate."""
+    import torch
+    from repro_torch.federated import study as study_mod
+    for ds, (study, sims, share, env) in fig2.items():
+        tag = f"study-cost-{ds}"
+        members = [study_mod._Member(arm=a, label=label, sim=sims[label],
+                                     seed=seed)
+                   for a, (label, _) in enumerate(study.arms)
+                   for seed in study.seeds]
+        R = STUDY_TIMED_ROUNDS
+        study_mod._run_group(members, 1, 1, None, None)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        study_mod._run_group(members, R, R, None, None)
+        torch.cuda.synchronize()
+        group_s = (time.perf_counter() - t0) / R
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        alone = {}
+        for m in members:
+            sim = m.sim
+            sim.run_chunk(sim.init(m.seed), 1)  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sim.run_chunk(sim.init(m.seed), R)
+            torch.cuda.synchronize()
+            alone[m.label, m.seed] = (time.perf_counter() - t0) / R
+        total = sum(alone.values())
+        print(f"[{tag}] on {card}: group {group_s!r} s per round ({R} rounds, "
+              f"no eval), sum of its {len(members)} members alone "
+              f"{total!r} s per round ({', '.join(f'{k[0]}[{k[1]}] {v:.4f}' for k, v in alone.items())}); "
+              f"group / sum {group_s / total:.3f}; envelope {env}, padding "
+              f"{share:.1%} of the local-step work; peak "
+              f"{peak:.2f} GiB", flush=True)
+        _, wall, busy, top = profiled(
+            lambda: study_mod._run_group(members, 1, 1, None, None))
+        print(f"[{tag}] profiled 1 group round: wall {wall:.4f} s, device "
+              f"busy {busy:.4f} s ({busy / wall:.1%}; idle "
+              f"{1 - busy / wall:.1%}), profiler on", flush=True)
+        for kname, sec in top[:8]:
+            print(f"[{tag}]   {sec * 1e3:9.3f} ms/round {sec / busy:6.1%}  "
+                  f"{kname[:90]}")
 
 
 # -- serve paths -----------------------------------------------------------------
@@ -1482,10 +2000,11 @@ def main() -> int:
         return 1
     from repro_torch.device import resolve_device
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.fold_matmul import ops as fm_ops
     from repro_torch.kernels.quantize import ops as q_ops
     from repro_torch.kernels.selective_scan import ops as ss_ops
     counters = {"quantize": q_ops, "flash_attention": fa_ops,
-                "selective_scan": ss_ops}
+                "selective_scan": ss_ops, "fold_matmul": fm_ops}
 
     # -- 1. device ---------------------------------------------------------
     card = card_line()
@@ -1508,7 +2027,8 @@ def main() -> int:
     # -- 3. kernels against their plain versions -----------------------------
     records = {"quantize": phase_quantize_kernel(dev, card),
                "flash_attention": phase_flash_kernel(dev, card),
-               "selective_scan": phase_scan_kernel(dev, card)}
+               "selective_scan": phase_scan_kernel(dev, card),
+               "fold_matmul": phase_fold_matmul_kernel(dev, card)}
 
     # -- 4, 5. the FL path and its reference ---------------------------------
     paper = phase_fl_main_path(counters, card=card)
@@ -1519,7 +2039,7 @@ def main() -> int:
     fl_launches.append(phase_fl_main_path(counters, "cifar_paper", "cifar",
                                           card)["launches"])
     fl_launches.append(phase_fl_fleet(counters))
-    phase_quickstart(counters)
+    fl_launches.append(phase_quickstart(counters))
 
     # -- 12. edge scenarios, faults and resilience ---------------------------
     phase_storm_quantize(dev, card)
@@ -1527,11 +2047,25 @@ def main() -> int:
     fl_launches.append(phase_quorum(counters, card))
     fl_launches.append(phase_guard(counters, card))
     fl_launches.append(phase_dropout_fleet(counters, card))
+
+    # -- 17. the Study: DEFL vs FedAvg vs Rand -------------------------------
+    fig2, fig2_launches = phase_fig2(counters, card)
+    fl_launches.extend(fig2_launches)
+    study_launches, study_rows = phase_study_compressed(
+        counters, card, fig2["mnist"][0])
+    fl_launches.append(study_launches)
+    phase_study_quantize(dev, card, study_rows)
+    fl_launches.append(phase_bit_check(counters, card, *fig2["mnist"][:2]))
+    phase_study_cost(card, fig2)
+    del fig2
+    gc.collect()
+    torch.cuda.empty_cache()
     for launches in fl_launches:
-        others = {k: n for k, n in launches.items() if k != "quantize" and n}
-        if others:
-            raise SystemExit(f"other kernels launched on the FL path: "
-                             f"{others}")
+        others = {k: n for k, n in launches.items()
+                  if k not in FL_KERNELS and n}
+        if others or not launches["fold_matmul"]:
+            raise SystemExit(f"the FL path launched other kernels, or not "
+                             f"the fold matmul: {launches}")
 
     # -- 6, 7. qwen2-0.5b serving and its reference --------------------------
     qwen2_launches = phase_serve(counters, "qwen2-0.5b")
@@ -1559,6 +2093,8 @@ def main() -> int:
     records["flash_attention"]["launches"] = sum(
         n["flash_attention"] for n in attn_launches)
     records["selective_scan"]["launches"] = falcon_launches["selective_scan"]
+    records["fold_matmul"]["launches"] = sum(n["fold_matmul"]
+                                             for n in fl_launches)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}

@@ -3,16 +3,17 @@
 Ties together the delay models (core/delay.py) and the KKT solution
 (core/kkt.py) into an executable federated training plan: the optimized
 (b*, theta*, V*) plus the predicted round/overall times. Copy of
-`make_plan` (with partial participation and cohorts), `deadline_plan`,
-`plan_to_fedconfig` and `fixed_plan` of repro/core/defl.py (the batched
-and asynchronous planners serve parts of the reference the port has not
-taken up yet).
+`make_plan` (with partial participation and cohorts), its batched form
+`make_plan_batch` over `PlanRequest`s (the Study's `plans()`),
+`deadline_plan`, `plan_to_fedconfig` and `fixed_plan` of
+repro/core/defl.py (the asynchronous planner serves a part of the
+reference the port has not taken up yet).
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -95,6 +96,45 @@ def _assemble_plan(sol: kkt.DelaySolution, prob: kkt.DelayProblem,
         solution=sol,
         problem=prob,
     )
+
+
+@dataclass(frozen=True, eq=False)
+class PlanRequest:
+    """One arm's Alg. 1 solve in value form — the batchable unit of
+    `make_plan_batch`. Field-for-field the `make_plan` signature."""
+
+    fed: FedConfig
+    pop: delay.DevicePopulation
+    update_bits: float
+    wireless: Optional[WirelessConfig] = None
+    method: str = "closed_form"
+    participation: float = 1.0
+    cohort_size: Optional[int] = None
+
+
+def make_plan_batch(requests: Sequence[PlanRequest]) -> List[DEFLPlan]:
+    """`make_plan` over N requests with the KKT stage batched: requests
+    sharing a method are solved by ONE vectorized `kkt.solve_batch`
+    dispatch instead of N scalar solves. Each returned plan is
+    bit-identical to `make_plan(**request)` — solve_batch's closed form
+    is elementwise-exact and the problem setup/assembly code is shared
+    verbatim (tests/test_torch_plan_batch.py holds the identity).
+    """
+    reqs = list(requests)
+    pieces = [
+        _plan_problem(r.fed, r.pop, r.update_bits, r.wireless,
+                      r.participation, r.cohort_size)
+        for r in reqs]
+    by_method = {}
+    for i, r in enumerate(reqs):
+        by_method.setdefault(r.method, []).append(i)
+    plans: List[Optional[DEFLPlan]] = [None] * len(reqs)
+    for method, idxs in by_method.items():
+        sols = kkt.solve_batch([pieces[i][0] for i in idxs], method=method)
+        for i, sol in zip(idxs, sols):
+            prob, T_cm, bits = pieces[i]
+            plans[i] = _assemble_plan(sol.quantized(prob), prob, T_cm, bits)
+    return plans
 
 
 def deadline_plan(

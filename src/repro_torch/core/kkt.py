@@ -11,13 +11,13 @@ T_cp = g * b with g = max_m G_m / f_m. The paper's closed form (Eq. 29):
     b*     = 2 c M sqrt( T_cm f_m eps / G_m )
     T_cp*  = g * b*
 
-Copy of the scalar solvers of repro/core/kkt.py: the closed form
-verbatim, the corrected point and a numerical optimizer (log-space grid +
-golden-section coordinate descent), selected by `solve(method=)`. The
-arithmetic is the reference's, expression for expression, so a plan is
-bit-identical to the reference's. (The reference's batched `_batch` /
-`_vec` twins serve its Study and planner service, which the port has not
-taken up yet.)
+Copy of the solvers of repro/core/kkt.py: the closed form verbatim, the
+corrected point and a numerical optimizer (log-space grid +
+golden-section coordinate descent), selected by `solve(method=)`, and
+their batched twins over N problems (`solve_batch`, which the Study's
+`plans()` runs through `defl.make_plan_batch`). The arithmetic is the
+reference's, expression for expression, so a plan is bit-identical to
+the reference's.
 """
 from __future__ import annotations
 
@@ -144,6 +144,33 @@ def grid_search(
     return evaluate(prob, float(bs[i]), float(als[j]), method="grid")
 
 
+def _grid_search_batch(T_cm, g, M, eps, nu, c,
+                       b_range=(1.0, 4096.0), alpha_range=(1e-3, 20.0),
+                       n: int = 160):
+    """`grid_search` over N lanes: one (N, n, n) objective evaluation.
+
+    The grid axes are shared across lanes (they depend only on the
+    ranges), the lane parameters broadcast as (N, 1, 1), and the
+    per-cell expression is the exact scalar association — so lane i's
+    argmin cell is the cell scalar `grid_search(probs[i])` picks."""
+    bs = np.geomspace(*b_range, n)
+    als = np.geomspace(*alpha_range, n)
+    Bm, Am = np.meshgrid(bs, als, indexing="ij")
+
+    def lane(x):
+        return np.asarray(x, np.float64)[:, None, None]
+
+    T_cm, g, M = lane(T_cm), lane(g), lane(M)
+    eps, nu, c = lane(eps), lane(nu), lane(c)
+    H = (c / (Bm ** 2 * eps ** 2 * M * nu * Am)
+         + c * M / (Bm * eps))
+    T = T_cm + nu * Am * g * Bm
+    J = H * T
+    flat = np.argmin(J.reshape(J.shape[0], -1), axis=1)
+    i, j = np.divmod(flat, n)
+    return bs[i], als[j]
+
+
 def _golden_min(f, lo: float, hi: float, iters: int = 80) -> float:
     """Golden-section minimize a unimodal f on [lo, hi] (log-space).
 
@@ -164,6 +191,72 @@ def _golden_min(f, lo: float, hi: float, iters: int = 80) -> float:
             d = a + gr * (b - a)
             fd = f(np.exp(d))
     return float(np.exp((a + b) / 2.0))
+
+
+def _golden_min_vec(f, lo, hi, iters: int = 80) -> np.ndarray:
+    """`_golden_min` over N independent lanes at once.
+
+    lo/hi are (N,) float64 arrays and f maps (N,) probe points to (N,)
+    objective values elementwise. Each lane runs the exact scalar
+    control flow — its bracket updates depend only on its own fc < fd
+    comparison, selected with np.where — and every probe/bracket value
+    is produced by the same elementwise expressions as the scalar code,
+    so lane i is bit-identical to `_golden_min(f_i, lo[i], hi[i])`
+    (tests/test_torch_plan_batch.py holds it via solve_batch). One lane
+    evaluates exactly one new probe per iteration, same as the scalar
+    loop; the N lanes' probes are batched into one f call."""
+    gr = (np.sqrt(5.0) - 1.0) / 2.0
+    a, b = np.log(np.asarray(lo, np.float64)), np.log(np.asarray(hi, np.float64))
+    c = b - gr * (b - a)
+    d = a + gr * (b - a)
+    fc, fd = f(np.exp(c)), f(np.exp(d))
+    for _ in range(iters):
+        left = fc < fd  # per-lane branch: shrink from the right
+        na = np.where(left, a, c)
+        nb = np.where(left, d, b)
+        # left lanes probe a new c; right lanes probe a new d — both are
+        # the same expression the scalar branch computes on its updated
+        # bracket, evaluated lane-wise and gathered into ONE f call.
+        probe_c = nb - gr * (nb - na)
+        probe_d = na + gr * (nb - na)
+        probe = np.where(left, probe_c, probe_d)
+        fp = f(np.exp(probe))
+        nc = np.where(left, probe_c, d)
+        nd = np.where(left, c, probe_d)
+        nfc = np.where(left, fp, fd)
+        nfd = np.where(left, fc, fp)
+        a, b, c, d, fc, fd = na, nb, nc, nd, nfc, nfd
+    return np.exp((a + b) / 2.0)
+
+
+def _objective_batch(T_cm, g, M, eps, nu, c, b, alpha):
+    """Elementwise J(b, alpha) over lanes — same association as
+    `objective` / `communication_rounds_alpha` (bit-identical per lane:
+    +, *, / are exact IEEE ops, max -> np.maximum)."""
+    alpha = np.maximum(alpha, 1e-12)
+    H = c / (b * b * eps * eps * M * nu * alpha) + c * M / (b * eps)
+    T = T_cm + nu * alpha * g * b
+    return H * T
+
+
+def _coordinate_descent_batch(T_cm, g, M, eps, nu, c, b0, alpha0,
+                              sweeps: int = 8, b_max: float = 64.0):
+    """`coordinate_descent` over N lanes: the same 8 alternating
+    golden-section sweeps, each running all lanes through ONE
+    `_golden_min_vec` call (alpha_min = 1/nu per lane)."""
+    alpha_min = 1.0 / np.asarray(nu, np.float64)
+    b = np.minimum(np.maximum(np.asarray(b0, np.float64), 1.0), b_max)
+    alpha = np.maximum(np.asarray(alpha0, np.float64), alpha_min)
+    hi_a = np.full_like(b, 100.0)
+    lo_b, hi_b = np.ones_like(b), np.full_like(b, b_max)
+    for _ in range(sweeps):
+        alpha = _golden_min_vec(
+            lambda a: _objective_batch(T_cm, g, M, eps, nu, c, b, a),
+            alpha_min, hi_a)
+        b = _golden_min_vec(
+            lambda bb: _objective_batch(T_cm, g, M, eps, nu, c, bb, alpha),
+            lo_b, hi_b)
+    return b, alpha
 
 
 def coordinate_descent(
@@ -197,3 +290,48 @@ def solve(prob: DelayProblem, method: str = "closed_form",
         grid = grid_search(prob, b_range=(1.0, b_max))
         return coordinate_descent(prob, grid.b, grid.alpha, b_max=b_max)
     raise ValueError(method)
+
+
+def solve_batch(probs, method: str = "closed_form",
+                b_max: float = 64.0):
+    """`solve` over N problems at once, bit-identical to the scalar path.
+
+    method='closed_form' (the default, and what every plan=True study
+    arm runs) evaluates the Eq. 29 algebra as ONE (N,)-vectorized numpy
+    dispatch; method='numerical' runs the grid seed as one (N, n, n)
+    evaluation and the golden-section coordinate descent as lockstep
+    `_golden_min_vec` sweeps (one batched objective probe per iteration
+    for all lanes). Every lane reproduces the scalar expression
+    association exactly, so each is bit-identical to `solve(probs[i])`
+    — held by tests/test_torch_plan_batch.py. method='corrected' is a
+    two-expression closed form; it stays a scalar loop, which is
+    trivially identical.
+
+    Returns a list of DelaySolution, one per problem, in order.
+    """
+    probs = list(probs)
+    if not probs:
+        return []
+    if method == "corrected":
+        return [solve(p, method=method, b_max=b_max) for p in probs]
+    T_cm = np.asarray([p.T_cm for p in probs], np.float64)
+    g = np.asarray([p.g for p in probs], np.float64)
+    M = np.asarray([p.M for p in probs], np.float64)
+    eps = np.asarray([p.eps for p in probs], np.float64)
+    nu = np.asarray([p.nu for p in probs], np.float64)
+    c = np.asarray([p.c for p in probs], np.float64)
+    if method == "closed_form":
+        inv_g = 1.0 / g
+        alpha = np.sqrt(T_cm * inv_g / (M ** 2 * eps * nu ** 2))
+        b = 2.0 * c * M * np.sqrt(T_cm * inv_g * eps)
+        b = np.maximum(b, 1.0)
+        alpha = np.maximum(alpha, 1e-6)
+    elif method == "numerical":
+        b0, a0 = _grid_search_batch(T_cm, g, M, eps, nu, c,
+                                    b_range=(1.0, b_max))
+        b, alpha = _coordinate_descent_batch(T_cm, g, M, eps, nu, c,
+                                             b0, a0, b_max=b_max)
+    else:
+        raise ValueError(method)
+    return [evaluate(p, float(bi), float(ai), method=method)
+            for p, bi, ai in zip(probs, b, alpha)]

@@ -27,7 +27,6 @@ from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
-from torch.func import vmap
 
 from repro_torch.configs.base import ComputeConfig, FedConfig, WirelessConfig
 from repro_torch.convert import to_torch
@@ -43,6 +42,7 @@ from repro_torch.federated.simulation import Simulator
 from repro_torch.kernels.quantize.ref import stochastic_noise
 from repro_torch.models import cnn
 from repro_torch.optim.sgd import sgd
+from repro_torch.utils.tree import tree_map
 
 # Calibration (the reference's): per-sample compute ~10 ms at b=1 on the
 # 2 GHz edge GPU pins theta* ~= 0.13-0.15, and c ~= 4.0 then pins
@@ -188,6 +188,34 @@ class ExperimentSpec:
         exact accounting), `fed` unchanged otherwise."""
         return self._fed_with_plan(self.resolve_plan())
 
+    def plan_request(self) -> Optional[defl.PlanRequest]:
+        """The arm's Alg. 1 solve in batchable value form: a
+        `defl.PlanRequest` when `resolve_plan()` reduces to a plain
+        `defl.make_plan` (plan=True and no deadline re-derivation), else
+        None: fixed-(b, V) baselines solve nothing and deadline-fault
+        scenarios re-derive over the truncated delay model, so both keep
+        their scalar paths. `Study.plans()` solves all batchable arms in
+        one `defl.make_plan_batch` call, bit-identical to per-arm
+        `analytic_plan()`. The port has no sampled cohorts yet, so
+        `cohort_size` is None."""
+        if not self.plan:
+            return None
+        participation = 1.0
+        ref = self.scenario_ref()
+        if ref is not None:
+            sc = scenarios.get(ref)
+            fm = sc.faults
+            if fm is not None and fm.active and (
+                    fm.deadline is not None
+                    or fm.deadline_factor is not None):
+                return None
+            participation = sc.expected_participation
+        return defl.PlanRequest(
+            fed=self.fed, pop=self.device_population(),
+            update_bits=self.update_bits(), wireless=self.wireless,
+            method=self.plan_method, participation=participation,
+            cohort_size=None)
+
     def analytic_plan(self) -> defl.DEFLPlan:
         """The delay-model operating point, always available: the solved
         DEFL plan when plan=True, otherwise Eq. 12/8 evaluated at the
@@ -211,7 +239,14 @@ class ExperimentSpec:
         params: the initial global model as a tree of arrays in the
         reference's layout, e.g. a model from the JAX package carried over
         by convert.py (default: cnn.init_cnn at `self.seed`). noise: the
-        simulator's quantizer-noise draw (see Simulator)."""
+        simulator's quantizer-noise draw (see Simulator).
+
+        The Simulator also gets the (V, b)-envelope form of the loss
+        (cnn.cnn_loss_masked) and the CNN's stacked gradient
+        (cnn.cnn_value_and_grad): on the card a client's numbers then do
+        not depend on the clients or the padding beside it, so a Study
+        member or a fleet member repeats its run alone. Evaluation goes
+        through the same products (cnn.cnn_logits_stacked)."""
         dev = resolve_device(device)
         make = DATASETS[self.dataset]
         pop = self.device_population()
@@ -233,20 +268,19 @@ class ExperimentSpec:
             xb = torch.as_tensor(test.x, device=dev)
             yb = torch.as_tensor(test.y, dtype=torch.int64, device=dev)
 
-            @torch.no_grad()
-            def eval_fn(p):
-                logits = cnn.cnn_forward(cfg, p, xb)
-                return {"acc": float(
-                    (logits.argmax(-1) == yb).to(torch.float32).mean())}
-
-            # The twin over a stacked member axis, for fleets: one call for
-            # all members. It agrees exactly with eval_fn per member: the
-            # hits are 0/1, so their float32 mean is exact in any order.
+            # One member's logits through the products of its training
+            # step (cnn.cnn_logits_stacked): eval_batch_fn's value for a
+            # member equals eval_fn's on its params, however many members
+            # share the call.
             @torch.no_grad()
             def eval_batch_fn(ps):
-                logits = vmap(lambda p: cnn.cnn_forward(cfg, p, xb))(ps)
+                logits = cnn.cnn_logits_stacked(cfg, ps, xb)
                 hits = (logits.argmax(-1) == yb[None]).to(torch.float32)
                 return {"acc": hits.mean(dim=-1).cpu().numpy()}
+
+            def eval_fn(p):
+                return {"acc": float(eval_batch_fn(
+                    tree_map(lambda x: x[None], p))["acc"][0])}
 
         ref = self.scenario_ref()
         label = self.label or (
@@ -257,7 +291,11 @@ class ExperimentSpec:
             data_factory, partition_sizes(parts), fed, sgd(fed.lr), pop,
             wireless=self.wireless, eval_fn=eval_fn, label=label,
             device=dev, noise=noise, eval_batch_fn=eval_batch_fn,
-            scenario=ref, faults=self.faults)
+            scenario=ref, faults=self.faults,
+            masked_loss_fn=lambda p, batch, m, n: cnn.cnn_loss_masked(
+                cfg, p, batch, m, n),
+            value_and_grad=lambda p, batch, m=None, n=None: (
+                cnn.cnn_value_and_grad(cfg, p, batch, m, n)))
 
 
 # ---------------------------------------------------------------------------

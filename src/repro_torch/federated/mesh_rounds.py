@@ -2,11 +2,17 @@
 
 Port of repro/federated/mesh_rounds.py for one device: clients are a
 stacked leading axis C on every param and optimizer leaf. One round = V
-local SGD steps per client (batched over C with torch.func.vmap) +
+local SGD steps per client (batched over C by a stacked value-and-grad:
+the CNN's own, cnn.cnn_value_and_grad, or torch.func.vmap of a loss) +
 weighted FedAvg + broadcast back to all C rows. A fleet of S runs
 (Simulator.run_fleet) folds its members into that axis (S*C rows, members
 major) where the reference vmaps its compiled chunk over a member axis;
 each member still averages only its own C clients.
+
+A Study group (federated/study.py) folds members with different (b, V)
+plans the same way, padded into the group's (V_env, B_env) envelope:
+per-row masks drop a padded step's writes and a padded sample's loss
+(envelope_local_steps_fn, build_fleet_chunk(envelope=True)).
 
 Under a scenario the round is masked: a per-round (S*C,) participation
 mask renormalises each member's FedAvg weights over its participating
@@ -27,32 +33,93 @@ Aggregation modes:
 """
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 from torch.func import grad_and_value, vmap
 
 from repro_torch.federated import compression
+from repro_torch.kernels.fold_matmul.ops import fold_matmul
 from repro_torch.optim.api import Optimizer, apply_updates
 from repro_torch.utils.tree import leaves, tree_map
 
 
-def local_steps_fn(loss_fn: Callable, opt: Optimizer):
+def vmapped_value_and_grad(loss_fn: Callable,
+                           masked_loss_fn: Optional[Callable] = None):
+    """The stacked value-and-grad of a per-client loss by torch.func.vmap:
+    (params_N, batch_N, sample_mask=None, n=None) -> (grads_N, loss (N,)),
+    over loss_fn(params, batch), or with a sample mask over
+    masked_loss_fn(params, batch, sample_mask, n)."""
+    plain = vmap(grad_and_value(loss_fn))
+    masked = (None if masked_loss_fn is None
+              else vmap(grad_and_value(masked_loss_fn)))
+
+    def value_and_grad(params, batch, sample_mask=None, n=None):
+        if sample_mask is None:
+            return plain(params, batch)
+        return masked(params, batch, sample_mask, n)
+
+    return value_and_grad
+
+
+def local_steps_fn(value_and_grad: Callable, opt: Optimizer):
     """(params_C, opt_C, batches) -> (params_C', opt_C', mean_loss (C,)).
 
     batches leaves are (C, V, ...): client c takes V SGD steps on its own
-    batches. The V-step loss mean is a left fold, as in the reference."""
-    grad_C = vmap(grad_and_value(loss_fn))
+    batches; value_and_grad(params_C, batch) gives every client's gradient
+    and loss at once (vmapped_value_and_grad, or a model's own stacked
+    form such as cnn.cnn_value_and_grad). The V-step loss mean is a left
+    fold, as in the reference."""
 
     def run(params, opt_state, batches):
         V = next(iter(batches.values())).shape[1]
         total = 0.0
         for v in range(V):
-            grads, loss = grad_C(params, {k: b[:, v] for k, b in batches.items()})
+            grads, loss = value_and_grad(
+                params, {k: b[:, v] for k, b in batches.items()})
             updates, opt_state = opt.update(grads, opt_state, params)
             params = apply_updates(params, updates)
             total = total + loss
-        return params, opt_state, total / V
+        # Over a tensor: a Python number would make CUDA multiply by its
+        # rounded reciprocal, an ulp away from the envelope form's
+        # division by v_count.
+        return params, opt_state, total / torch.full_like(total, V)
+
+    return run
+
+
+def envelope_local_steps_fn(value_and_grad: Callable, opt: Optimizer):
+    """`local_steps_fn` over a padded (V_env, B_env) shape envelope: the
+    Study runs arms with different (b, V) plans as one folded fleet by
+    padding every member to its group's envelope.
+
+    (params_C, opt_C, batches, env) -> (params_C', opt_C', mean_loss (N,)).
+    batches leaves are (N, V_env, B_env, ...), each row's real V x b
+    draws zero-padded along both axes; value_and_grad(params, batch,
+    sample_mask, n) differentiates the masked loss
+    (models.cnn.cnn_loss_masked). env holds one row a client (N = S*C,
+    each member's values repeated over its C clients):
+      v_mask      (N, V_env) 1.0 on the member's own local steps; a padded
+                  step still runs (the shapes are static), and torch.where
+                  drops its writes to params and optimizer state
+      sample_mask (N, B_env) 1.0 on the member's b samples
+      n_samples   (N,) b, and v_count (N,) V, as float32
+    The loss fold adds 0 for a padded step and divides by the member's
+    own V (never by V_env)."""
+
+    def run(params, opt_state, batches, env):
+        total = 0.0
+        for v in range(env["v_mask"].shape[1]):
+            grads, loss = value_and_grad(
+                params, {k: b[:, v] for k, b in batches.items()},
+                env["sample_mask"], env["n_samples"])
+            updates, new_s = opt.update(grads, opt_state, params)
+            new_p = apply_updates(params, updates)
+            valid = env["v_mask"][:, v]
+            params = _select_participating_state(new_p, params, valid)
+            opt_state = _select_participating_state(new_s, opt_state, valid)
+            total = total + torch.where(valid > 0, loss, 0.0)
+        return params, opt_state, total / env["v_count"]
 
     return run
 
@@ -143,11 +210,21 @@ def _weighted_client_sum(weights: torch.Tensor, x: torch.Tensor) -> torch.Tensor
     """sum_c w_c x_c over each member's C clients, in float32: x is
     (S*C, ...) with members major; weights (C,) shared by the members, or
     (S, C) with one row a member (a scenario's renormalised weights); the
-    result is (S, ...)."""
+    result is (S, ...). One fma chain over c = 0..C-1 (fold_matmul), so a
+    member's sum does not depend on how many members share the call."""
     C = weights.shape[-1]
-    x = x.reshape(-1, C, *x.shape[1:]).to(torch.float32)
-    w = weights.to(torch.float32).reshape((-1, C) + (1,) * (x.dim() - 2))
-    return torch.sum(w * x, dim=1)
+    S = x.shape[0] // C
+    xs = x.reshape(S, C, -1).to(torch.float32)
+    w = weights.to(torch.float32).reshape(-1, 1, C).expand(S, 1, C)
+    return fold_matmul(w, xs).reshape(S, *x.shape[1:])
+
+
+def _client_sum(x: torch.Tensor, C: int) -> torch.Tensor:
+    """(S*C,) per-client values -> (S,) each member's sum over its C
+    clients, one fma chain (fold_matmul), so a member's reported loss does
+    not depend on the members beside it."""
+    x = x.to(torch.float32).reshape(-1, C, 1)
+    return fold_matmul(x.new_ones(()).expand(x.shape[0], 1, C), x)[:, 0, 0]
 
 
 def _bcast_members(m: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -186,13 +263,14 @@ def _int8_stochastic_mean_bcast(new_params, old_params, weights, u):
     return tree_map(agg, rec, old_params)
 
 
-def build_round_step(loss_fn: Callable, opt: Optimizer,
-                     aggregation: str = "allreduce", guard=None):
-    """round_step(params_C, opt_C, batches, weights, u=None, mask=None) ->
-    (params_C', opt_C', per_client_loss, mask'). The leading axis of
-    params_C, opt_C and batches (leaves (N, V, ...)) holds S members of C
-    clients each, members major (N = S*C; S = 1 for one run); u is the
-    (N, rows, 1024) quantizer noise, needed by 'int8_stochastic'.
+def build_round_step(value_and_grad: Callable, opt: Optimizer,
+                     aggregation: str = "allreduce", guard=None,
+                     envelope: bool = False):
+    """round_step(params_C, opt_C, batches, weights, u=None, mask=None,
+    env=None) -> (params_C', opt_C', per_client_loss, mask'). The leading
+    axis of params_C, opt_C and batches (leaves (N, V, ...)) holds S
+    members of C clients each, members major (N = S*C; S = 1 for one run);
+    u is the (N, rows, 1024) quantizer noise, needed by 'int8_stochastic'.
 
     Without a mask, weights are the (C,) FedAvg weights summing to 1,
     shared by the members. With a (N,) participation mask (a scenario's
@@ -206,13 +284,24 @@ def build_round_step(loss_fn: Callable, opt: Optimizer,
     The order is the reference's (mesh_rounds.py:447-469): guard, then
     reset the dropped rows to their pre-round state, then compress, so a
     dropped or rejected client sends the quantize kernel an all-zero delta
-    and never a NaN."""
+    and never a NaN.
+
+    value_and_grad(params_N, batch_N[, sample_mask, n]) is the stacked
+    clients' gradient and loss (local_steps_fn). envelope=True runs the
+    Study's (V, b) envelope form: batches leaves are (N, V_env, B_env,
+    ...) and env holds the per-row envelope masks
+    (envelope_local_steps_fn).""" 
     if aggregation not in ("allreduce", "int8_stochastic"):
         raise ValueError(aggregation)
-    local = local_steps_fn(loss_fn, opt)
+    if envelope:
+        local = envelope_local_steps_fn(value_and_grad, opt)
+    else:
+        plain = local_steps_fn(value_and_grad, opt)
+        local = lambda p, s, b, env: plain(p, s, b)  # noqa: E731
 
-    def round_step(params_C, opt_C, batches, weights, u=None, mask=None):
-        new_p, new_s, losses = local(params_C, opt_C, batches)
+    def round_step(params_C, opt_C, batches, weights, u=None, mask=None,
+                   env=None):
+        new_p, new_s, losses = local(params_C, opt_C, batches, env)
         if guard is not None:
             new_p, mask = _guard_clients(guard, new_p, params_C, losses, mask)
         any_p = None
@@ -232,15 +321,17 @@ def build_round_step(loss_fn: Callable, opt: Optimizer,
     return round_step
 
 
-def build_fleet_chunk(loss_fn: Callable, opt: Optimizer, n_clients: int,
+def build_fleet_chunk(value_and_grad: Callable, opt: Optimizer,
+                      n_clients: int,
                       compress: bool, batch_from: Callable, noise: Callable,
-                      rows: int, guard=None, quorum=None):
+                      rows: int, guard=None, quorum=None,
+                      envelope: bool = False):
     """A chunk of rounds for S members (fleet runs; S = 1 for one run)
     with no host synchronisation inside:
     chunk_step(params, opt_state, generators, weights, data, idx,
-    mask=None) -> (params', opt_state', ys). The members are folded into
-    the client axis: params and opt_state leaves are (S*C, ...), members
-    major, so each round is ONE vmap(grad_and_value) over all S*C clients
+    mask=None, env=None) -> (params', opt_state', ys). The members are
+    folded into the client axis: params and opt_state leaves are (S*C, ...), members
+    major, so each round is ONE value_and_grad call over all S*C clients
     and one per-member weighted FedAvg. idx (R, S*C, V, B) holds the
     global sample indices of R rounds, gathered on the device from `data`
     by `batch_from`.
@@ -264,13 +355,19 @@ def build_fleet_chunk(loss_fn: Callable, opt: Optimizer, n_clients: int,
     With compress, each round draws member s's quantizer noise as one
     noise(generators[s], (C, rows, 1024)) call, in member order (the
     draws a run of that member alone makes), and quantizes all S*C
-    clients' updates in ONE kernel launch."""
+    clients' updates in ONE kernel launch.
+
+    envelope=True is the Study's group chunk: the members may run different (b, V) plans padded into one (V_env,
+    B_env) envelope (idx (R, S*C, V_env, B_env), padded entries 0), and
+    env holds their per-row envelope masks (envelope_local_steps_fn)."""
     step = build_round_step(
-        loss_fn, opt, "int8_stochastic" if compress else "allreduce", guard)
+        value_and_grad, opt, "int8_stochastic" if compress else "allreduce",
+        guard,
+        envelope)
     C = n_clients
 
     def chunk_step(params, opt_state, generators, weights, data: Dict, idx,
-                   mask=None):
+                   mask=None, env=None):
         ys = {"loss": [], "n_participants": [], "finite": [], "rejected": []}
         for r in range(idx.shape[0]):
             u = None
@@ -280,14 +377,14 @@ def build_fleet_chunk(loss_fn: Callable, opt: Optimizer, n_clients: int,
                 u = us[0] if len(us) == 1 else torch.cat(us)
             new_p, new_s, per_client, m_eff = step(
                 params, opt_state, batch_from(data, idx[r]), weights, u,
-                None if mask is None else mask[r])
+                None if mask is None else mask[r], env)
             if mask is None:
-                ys["loss"].append(per_client.reshape(-1, C).mean(dim=1))
+                ys["loss"].append(_client_sum(per_client, C) / C)
                 params, opt_state = new_p, new_s
                 continue
             msk = m_eff.reshape(-1, C)
             n = torch.sum(msk, dim=1)
-            loss = (torch.sum(per_client.reshape(-1, C) * msk, dim=1)
+            loss = (_client_sum(torch.where(m_eff > 0, per_client, 0.0), C)
                     / torch.where(n > 0, n, 1.0))
             ys["loss"].append(torch.where(n > 0, loss, float("nan")))
             ys["n_participants"].append(n)

@@ -30,6 +30,9 @@ state-in/state-out and never modify a state's tensors in place.
 from __future__ import annotations
 
 import dataclasses
+import os
+import pickle
+import tempfile
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence
 
@@ -210,6 +213,17 @@ class Simulator:
     faults.FaultModel) overlays deadlines, retransmission, crash/rejoin,
     the update guard and the quorum gate on it (on 'uniform' when no
     scenario is given). An inactive FaultModel is ignored.
+
+    `masked_loss_fn(params, batch, sample_mask, n)` is the (V, b)-envelope
+    form of loss_fn (mesh_rounds.envelope_local_steps_fn); with it, a
+    Study can run this simulator padded into a group of arms with other
+    (b, V) plans (federated/study.py). `value_and_grad(params_N, batch_N,
+    sample_mask=None, n=None) -> (grads_N, loss (N,))` computes both
+    losses' gradients over the stacked client axis at once; by default it
+    is torch.func.vmap of their autograd gradients
+    (mesh_rounds.vmapped_value_and_grad). ExperimentSpec.build gives the
+    CNN's own (cnn.cnn_value_and_grad), under which a member's round on
+    the card does not depend on the members beside it or on its padding.
     """
 
     def __init__(
@@ -229,6 +243,8 @@ class Simulator:
         eval_batch_fn: Optional[Callable] = None,
         scenario: Any = None,  # scenarios.Scenario | name | None
         faults: Optional[FaultModel] = None,
+        masked_loss_fn: Optional[Callable] = None,
+        value_and_grad: Optional[Callable] = None,
     ):
         # The constructor's arguments, for the recovery path's rebuilt
         # simulator (_recovery_variant).
@@ -237,7 +253,8 @@ class Simulator:
             data_sizes=data_sizes, fed=fed, opt=opt, pop=pop,
             wireless=wireless, eval_fn=eval_fn, label=label, device=device,
             noise=noise, eval_batch_fn=eval_batch_fn, scenario=scenario,
-            faults=faults)
+            faults=faults, masked_loss_fn=masked_loss_fn,
+            value_and_grad=value_and_grad)
         self.device = resolve_device(device)
         self.loss_fn = loss_fn
         self._data_src = data
@@ -252,6 +269,11 @@ class Simulator:
         self.eval_fn = eval_fn
         self.eval_batch_fn = eval_batch_fn
         self.label = label
+        self.masked_loss_fn = masked_loss_fn
+        self.value_and_grad = (
+            value_and_grad if value_and_grad is not None
+            else mesh_rounds.vmapped_value_and_grad(loss_fn, masked_loss_fn))
+        self.noise = noise
         probe = data(fed.seed)
         if not len(probe) == fed.n_devices == pop.n:
             raise ValueError(
@@ -303,12 +325,20 @@ class Simulator:
             # full-population Eq. 8 round time.
             nominal = delay.round_time(*self.round_times(), fed.local_rounds)
             self._deadline = self._faults.resolve_deadline(nominal)
-        self._chunk_fn = mesh_rounds.build_fleet_chunk(
-            loss_fn, opt, fed.n_devices, fed.compress_updates,
-            type(probe[0]).batch_from, noise,
+        self._batch_from = type(probe[0]).batch_from
+        self._chunk_fn = self.build_chunk()
+
+    def build_chunk(self, envelope: bool = False):
+        """This simulator's chunk function (mesh_rounds.build_fleet_chunk);
+        envelope=True builds the Study's group chunk over the masked
+        loss."""
+        return mesh_rounds.build_fleet_chunk(
+            self.value_and_grad, self.opt, self.fed.n_devices, self.fed.compress_updates,
+            self._batch_from, self.noise,
             compression.n_rows(self._init_params), guard=self._guard,
             quorum=(None if self._quorum is None
-                    else (self._quorum, self._quorum_policy)))
+                    else (self._quorum, self._quorum_policy)),
+            envelope=envelope)
 
     # -- state construction -------------------------------------------------
     def init(self, seed: Optional[int] = None) -> SimState:
@@ -417,12 +447,21 @@ class Simulator:
         return len(history)
 
     # -- the chunked driver -------------------------------------------------
-    def _chunk_inputs(self, iters, stream, n: int):
+    def _chunk_inputs(self, iters, stream, n: int,
+                      envelope: Optional[tuple] = None):
         """Host-side draws of one member's next n rounds: (batch indices
         (n, C, V, B), participation mask (n, C) float32 or None, and the
         host dict of the float64 clock twin for the records, or None
-        without a scenario)."""
-        idx = stack_chunk_indices(iters, n, self.fed.local_rounds)
+        without a scenario). With `envelope=(V_env, B_env)` (a Study
+        group) the indices are zero-padded to (n, C, V_env, B_env): no
+        extra draw, so the iterators and the stream advance exactly as in
+        a run of this simulator alone."""
+        V, b = self.fed.local_rounds, self.fed.batch_size
+        idx = stack_chunk_indices(iters, n, V)
+        if envelope is not None and tuple(envelope) != (V, b):
+            padded = np.zeros(idx.shape[:2] + tuple(envelope), idx.dtype)
+            padded[:, :, :V, :b] = idx
+            idx = padded
         if stream is None:
             return idx, None, None
         chunk = stream.draw_chunk(n)
@@ -491,10 +530,15 @@ class Simulator:
     def _drive(self, states: Sequence[SimState], max_rounds: int,
                eval_every: int, target_acc: Optional[float],
                max_sim_time: Optional[float], evaluate: Optional[Callable],
-               divergence: bool = False):
+               divergence: bool = False,
+               sims: Optional[Sequence["Simulator"]] = None,
+               chunk_fn: Optional[Callable] = None,
+               env: Optional[Dict[str, torch.Tensor]] = None):
         """The chunked round loop, for S member states in lockstep (S = 1 for
         run/run_chunk): (states', histories), after up to max_rounds
-        rounds in chunks of eval_every.
+        rounds in chunks of eval_every. This is the one driver: `run`,
+        `run_fleet` and the Study's groups (federated/study.py) all run
+        through it.
 
         The members are stacked on the client axis (S*C rows, members
         major) and each chunk is ONE device call for all of them: one
@@ -510,13 +554,28 @@ class Simulator:
         target_acc; it is then sliced out of the stack and keeps its state
         as its final state.
 
+        A Study group passes its members' own simulators as `sims` (default:
+        this one for every member): member s draws its batches and masks,
+        and keeps its Eq. 8 clock and uplink bits, through sims[s], with its
+        own plan, and its quantizer noise comes from its own generator.
+        The device call is `chunk_fn` (default
+        this simulator's chunk); a group's is the envelope chunk of its
+        first simulator, and `env` holds the members' envelope masks one
+        row a client (S*C rows; mesh_rounds.envelope_local_steps_fn): each
+        member's draws are zero-padded to its (V_env, B_env), and a
+        stopped member's rows leave the stack with its params.
+
         divergence (run() of one member, with the fault layer's
         divergence_guard) checks each chunk's losses and raises
         DivergenceError carrying the state before the chunk."""
         C = self.fed.n_devices
         S = len(states)
-        mats = [self._materialize(st) for st in states]
-        gens = [self._generator(st) for st in states]
+        sims = list(sims) if sims is not None else [self] * S
+        chunk_fn = self._chunk_fn if chunk_fn is None else chunk_fn
+        envelope = None if env is None else (env["v_mask"].shape[1],
+                                             env["sample_mask"].shape[1])
+        mats = [sim._materialize(st) for sim, st in zip(sims, states)]
+        gens = [sim._generator(st) for sim, st in zip(sims, states)]
         params = tree_map(lambda *xs: _cat_members(xs),
                           *[st.params_C for st in states])
         opt_state = tree_map(lambda *xs: _cat_members(xs),
@@ -537,27 +596,28 @@ class Simulator:
             pre = [(tuple(it.state() for it in mats[s][0]),
                     None if mats[s][1] is None else mats[s][1].state())
                    if max_sim_time else None for s in active]
-            drawn = [self._chunk_inputs(*mats[s], n) for s in active]
+            drawn = [sims[s]._chunk_inputs(*mats[s], n, envelope)
+                     for s in active]
             idx = np.concatenate([d[0] for d in drawn], axis=1)
             idx = torch.from_numpy(idx.astype(np.int64)).to(self.device)
             mask = None
             if self.scenario is not None:
                 mask = torch.from_numpy(np.concatenate(
                     [d[1] for d in drawn], axis=1)).to(self.device)
-            params, opt_state, ys = self._chunk_fn(
+            params, opt_state, ys = chunk_fn(
                 params, opt_state, [gens[s] for s in active], weights,
-                self._data_dev, idx, mask)
+                self._data_dev, idx, mask, env)
             ys = {k: v.cpu().numpy() for k, v in ys.items()}
             stopped = set()
             for i, s in enumerate(active):
-                recs = self._chunk_records({k: v[i] for k, v in ys.items()},
-                                           drawn[i][2], n, r0 + done,
-                                           times[s])
+                recs = sims[s]._chunk_records(
+                    {k: v[i] for k, v in ys.items()}, drawn[i][2], n,
+                    r0 + done, times[s])
                 if max_sim_time:
                     for j, rec in enumerate(recs):
                         if rec.sim_time >= max_sim_time:
                             if j + 1 < n:
-                                self._rewind(mats[s], pre[i], j + 1)
+                                sims[s]._rewind(mats[s], pre[i], j + 1)
                             recs = recs[:j + 1]
                             stopped.add(s)
                             break
@@ -598,12 +658,14 @@ class Simulator:
                 params, opt_state = (
                     tree_map(lambda x: _members(x, C, keep), t)
                     for t in (params, opt_state))
+                if env is not None:
+                    env = {k: _members(x, C, keep) for k, x in env.items()}
                 active = [active[i] for i in keep]
         for i, s in enumerate(active):
             finals[s] = tuple(tree_map(lambda x: _member(x, C, i), t)
                               for t in (params, opt_state))
-        out = [self._state_at(st, *finals[s], gens[s], mats[s],
-                              r0 + len(histories[s]), times[s])
+        out = [sims[s]._state_at(st, *finals[s], gens[s], mats[s],
+                                 r0 + len(histories[s]), times[s])
                for s, st in enumerate(states)]
         return out, histories
 
@@ -723,6 +785,13 @@ class Simulator:
             res.restarts = restarts
             return state, res
 
+    def _eval_members(self, globals_S) -> List[Dict]:
+        """Eval of stacked (S, ...) global models: ONE eval_batch_fn call
+        for all members, one dict a member."""
+        ev = self.eval_batch_fn(globals_S)
+        return [{k: v[i] for k, v in ev.items()}
+                for i in range(leaves(globals_S)[0].shape[0])]
+
     def run_fleet(
         self,
         seeds: Optional[Iterable[int]] = None,
@@ -736,7 +805,7 @@ class Simulator:
         `init(seed)`) or `states` (which must share a round cursor), with
         ONE device call per chunk for the whole fleet. The members are
         folded into the client axis (mesh_rounds.build_fleet_chunk): one
-        vmap(grad_and_value) over S*C clients, a per-member FedAvg, and,
+        value_and_grad call over S*C clients, a per-member FedAvg, and,
         with compression, one quantize launch a round for all S*C
         clients. Member s draws from its own data iterators and noise
         generator, in member order, exactly the batches and noise a run
@@ -754,15 +823,15 @@ class Simulator:
             falls on the same round (a target_acc stop follows test_acc,
             which follows the params);
           * one round from equal states gives train losses within 1e-5
-            relative and params within 5e-4 absolute: the batched kernels
-            see S*C clients instead of C and may sum in another order,
-            which can flip a stochastic-rounding code or a ReLU's sign
-            (chip_smoke.py's fleet phase holds 8 seeds to it on the card).
+            relative and params within 5e-4 absolute (chip_smoke.py's
+            fleet phase holds 8 seeds to it on the card). Under the CNN's
+            stacked gradient (ExperimentSpec.build) a member's numbers on
+            the card do not depend on the members beside it, so there it
+            repeats its run alone bit for bit; on the CPU torch.matmul's
+            sums follow the shapes, and so does cuDNN under vmap of
+            autograd (the default value_and_grad).
         Over whole histories the CPU tests hold members to the same bounds
-        (tests/test_torch_fleet.py). The card holds them to no float bound:
-        the FL dynamics amplify a float32 ulp within a few rounds, and
-        with cuDNN's default algorithms the card does not repeat even a
-        run alone bit for bit (the fleet phase prints both).
+        (tests/test_torch_fleet.py).
         test_acc is exact on equal params
         (eval_batch_fn agrees with eval_fn).
         """
@@ -788,19 +857,37 @@ class Simulator:
                     f"{sorted({st.round for st in states})}) — lockstep "
                     "chunking has no per-member ragged tails")
 
-        evaluate = None
-        if self.eval_batch_fn is not None:
-            def evaluate(g):
-                ev = self.eval_batch_fn(g)
-                return [{k: v[i] for k, v in ev.items()}
-                        for i in range(leaves(g)[0].shape[0])]
-
+        evaluate = (self._eval_members if self.eval_batch_fn is not None
+                    else None)
         out, histories = self._drive(states, max_rounds, eval_every,
                                      target_acc, max_sim_time, evaluate)
         return FleetResult(states=out, results=[
             SimResult(history=h, params=self.params(st),
                       label=f"{self.label}[seed={st.seed}]", fed=self.fed)
             for st, h in zip(out, histories)])
+
+
+def _atomic_pickle(path: str, payload: Any) -> None:
+    """Crash-safe pickle write: serialize into a temp file in the
+    target's directory (os.replace must not cross filesystems), fsync,
+    then rename it into place. A kill at any instant leaves the previous
+    file or none, never a torn pickle (at worst a stray `<name>.tmp*`
+    file, which no reader opens)."""
+    d = os.path.dirname(os.path.abspath(path))
+    fd, tmp = tempfile.mkstemp(
+        dir=d, prefix=os.path.basename(path) + ".tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            pickle.dump(payload, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
 
 
 def _cat_members(xs: Sequence[torch.Tensor]) -> torch.Tensor:

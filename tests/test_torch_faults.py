@@ -268,7 +268,7 @@ def _assert_round(rec, j_rec, end, j_params):
 def test_update_norm_clipping_matches_reference():
     t_sim, rounds = _per_round_pair(dict(max_update_norm=MAX_NORM))
     assert t_sim._guard == (MAX_NORM, True)
-    local = t_rounds.local_steps_fn(t_sim.loss_fn, t_sim.opt)
+    local = t_rounds.local_steps_fn(t_sim.value_and_grad, t_sim.opt)
     for start, end, rec, j_rec, j_params in rounds:
         # The unclipped norms of this round: every one well above the
         # threshold, so the frameworks' sum orders cannot flip a decision.

@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither jax nor the reference package,
-and its entry points run on the card unless the CPU is asked for."""
+"""The port stands alone: it imports neither jax nor the reference package
+(nor the reference's benchmarks), and its entry points run on the card
+unless the CPU is asked for."""
 import ast
 import pathlib
 import subprocess
@@ -13,8 +14,9 @@ import repro_torch
 from repro_torch import convert
 from repro_torch.configs.registry import get_config
 from repro_torch.device import resolve_device
-from repro_torch.federated import experiment, simulation
+from repro_torch.federated import experiment, simulation, study
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.fold_matmul import ops as fm_ops
 from repro_torch.kernels.quantize import ops
 from repro_torch.kernels.selective_scan import ops as ss_ops
 from repro_torch.launch import serve
@@ -24,7 +26,8 @@ PKG = pathlib.Path(repro_torch.__file__).resolve().parent
 ROOT = PKG.parent.parent
 # The port's scripts outside the package: they import nothing of JAX or of
 # the reference either.
-SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py"]
+SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
+           ROOT / "examples" / "defl_vs_fedavg_torch.py"]
 MODULES = sorted(
     ".".join(("repro_torch",) + p.relative_to(PKG).with_suffix("").parts)
     .removesuffix(".__init__")
@@ -38,7 +41,8 @@ def test_importing_every_module_leaves_jax_and_repro_out():
                       for p in SCRIPTS)
             + "bad = sorted(m for m in sys.modules if m == 'jax' or "
               "m.startswith('jax.') or m == 'repro' or "
-              "m.startswith('repro.'))\n"
+              "m.startswith('repro.') or m == 'benchmarks' or "
+              "m.startswith('benchmarks.'))\n"
               "print(len(bad), bad)\n"
               "sys.exit(1 if bad else 0)\n")
     env = {"PYTHONPATH": str(PKG.parent), "PATH": "/usr/bin:/bin",
@@ -63,7 +67,8 @@ def test_no_source_imports_jax_or_repro():
                 names = [node.module or ""]
             for n in names:
                 top = n.split(".")[0]
-                assert top not in ("jax", "jaxlib", "repro"), (path, n)
+                assert top not in ("jax", "jaxlib", "repro", "benchmarks"), (
+                    path, n)
 
 
 def test_entry_points_default_to_cuda_and_never_fall_back():
@@ -72,6 +77,8 @@ def test_entry_points_default_to_cuda_and_never_fall_back():
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"
         assert spec.build().device.type == "cuda"
+        sims = study.Study(arms=[("A", spec)]).build_sims()
+        assert sims["A"].device.type == "cuda"
         params = tfm.init_params(cfg, torch.Generator())
         assert params["embed"].device.type == "cuda"
         return
@@ -81,6 +88,8 @@ def test_entry_points_default_to_cuda_and_never_fall_back():
         resolve_device("cuda")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         spec.build()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        study.Study(arms=[("A", spec)], max_rounds=1).run()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         simulation.Simulator(None, {}, lambda s: [], [], spec.fed, None, None)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -126,3 +135,9 @@ def test_selective_scan_refuses_other_devices():
     bc = torch.zeros(1, 8, 8, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         ss_ops.selective_scan(x, x, A, bc, bc, torch.zeros(16, device="meta"))
+
+
+def test_fold_matmul_refuses_other_devices():
+    x = torch.zeros(2, 4, 4, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fm_ops.fold_matmul(x, x)

@@ -56,7 +56,9 @@ def test_round_step_matches_jax(aggregation):
         u = torch.tensor(np.stack([np.asarray(j_noise(k, (rows, t_comp.ROW)))
                                    for k in keys]))
     t_step = t_rounds.build_round_step(
-        lambda p, b: t_cnn.cnn_loss(t_cfg, p, b), t_sgd(LR), aggregation)
+        lambda p, b: t_cnn.cnn_stacked_value_and_grad(t_cfg, p, b),
+        t_sgd(LR),
+        aggregation)
     t_p, _, t_loss, _ = t_step(
         to_torch(stacked, device="cpu"), (),
         {"x": torch.tensor(x), "y": torch.tensor(y, dtype=torch.int64)},

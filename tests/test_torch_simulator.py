@@ -142,7 +142,8 @@ def test_round_codes_match_up_to_rare_flips(runs, record_property):
     j_new, _, j_loss = j_local(jax.tree.map(stack, params0), (),
                                {"x": jnp.asarray(x), "y": jnp.asarray(y)})
     t_local = t_rounds.local_steps_fn(
-        lambda p, b: t_cnn.cnn_loss(t_cnn.mnist_cnn_small(), p, b),
+        lambda p, b: t_cnn.cnn_stacked_value_and_grad(
+            t_cnn.mnist_cnn_small(), p, b),
         t_sgd(cfg.lr))
     t_new, _, t_loss = t_local(
         to_torch(jax.tree.map(stack, params0), device="cpu"), (),
