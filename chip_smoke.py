@@ -9,7 +9,9 @@ Phases (each prints its own lines; any failure exits non-zero):
   2. build: every CUDA kernel of the port, compiled with nvcc from the
      sources in this checkout (one nvcc a source, all started together),
      timed, with their registers and spills, and fails if an instance of
-     the scan kernel (selective_scan_fwd<N>) spills; prints the spill bytes
+     the scan kernel (selective_scan_fwd<N>) or of the fold matmul (each
+     tile and panel instance of ops.INSTANCES and the row kernel, printed
+     with its registers) spills or is missing; prints the spill bytes
      of every flash instance (both dtypes, each head_dim); then
      `cuobjdump -sass` of the flash library counts the wgmma (HGMMA) and
      TMA-load (UTMALDG) instructions of each bf16 instance
@@ -24,13 +26,19 @@ Phases (each prints its own lines; any failure exits non-zero):
      block;
      selective scan: 3e-5 of max(1, max |plain|); fold matmul: 1e-4 of
      max(1, max |plain|) against torch.matmul at the Fig. 2 MNIST Study
-     group's product shapes, and its rows unmoved bit for bit by more rows,
-     by zeros appended to K and by its other route), then its time per launch
-     beside the plain version's time, the card's bound for the same work
-     and, where one PyTorch call computes the same function, that call's
-     time; the scan also prints its resident warps an SM at the falcon
-     shape (at least 24, or the run fails) and its time for one prompt
-     (B=1);
+     group's product shapes and at compressed `mnist_paper`'s own (the
+     `paper_*` cases), the tiles and panel routes equal to the row route
+     (the oracle) as int32, and its rows unmoved bit for bit by more rows
+     and by zeros appended to K), then its time per launch beside the plain
+     version's time, the card's bound for the same work and, where one
+     PyTorch call computes the same function, that call's time; the fold
+     matmul also prints its route and instance, the row route's time, each
+     time also on the device alone (torch.profiler: without the host's
+     launch cost, which CUDA events count on a short launch) and a bound of
+     three terms (bytes, operations, and one output's chain of K fmas at 4
+     cycles each and the SM's highest clock); the scan also prints its
+     resident warps an SM at the falcon shape (at least 24, or the run
+     fails) and its time for one prompt (B=1);
   4. FL main path: the registered `mnist_paper` experiment with int8 uplink
      compression (the paper's MNIST CNN, M=10 clients), built on the card
      and run for 6 rounds in two chunks; the quantize kernel must have
@@ -40,7 +48,7 @@ Phases (each prints its own lines; any failure exits non-zero):
      fold matmul alone); losses must be
      finite and the uplink bits exact; then 36 more rounds timed in steady
      state (12 chunks of 3, no eval) and 3 under torch.profiler (device
-     busy share, kernels by device time);
+     busy share, kernels by device time, the fold matmul's ms a round);
   5. FL reference: `mnist_smoke` with compression on the card and on the
      CPU (the CPU run takes the kernels' plain versions) from the same
      model and the same quantizer noise; the runs must agree;
@@ -58,7 +66,8 @@ Phases (each prints its own lines; any failure exits non-zero):
      relative, params within 5e-4), on two fleets of 4 seeds, with each
      round's largest params gap printed beside that of a member fed
      another member's noise; fleet s/round beside 4 x the s/round of one
-     run, and a profiled fleet window; then
+     run, and a profiled fleet window (with the fold matmul's ms a round);
+     then
      `examples/quickstart_torch.py`'s main on the card through its fleet
      summary (uncompressed: the fold matmul alone launches);
   6. serve path: `qwen2-0.5b` at full width and depth (random weights from
@@ -124,7 +133,8 @@ Phases (each prints its own lines; any failure exits non-zero):
      (c) Study(bit_check=True) on the Fig. 2 MNIST group itself, which
      probes all three arms (each padded) before its 1 round; (d) each
      group's s/round beside the sum of its members' s/round alone, its
-     padding share, peak memory and a profiled round (none a gate).
+     padding share, peak memory and a profiled round with the fold
+     matmul's share (none a gate).
 
 Phases 10, 11, 12 and 17 run right after phase 5, phases 13-16 after phase
 9; quantize's `launches` in the JSON line are those of phases 4, 10, 11, 12
@@ -223,6 +233,25 @@ def profiled(fn):
     return out, wall, sum(by_name.values()), top
 
 
+def device_ms(fn, calls=10):
+    """Device time per call: torch.profiler's CUDA kernel time over `calls`
+    calls after one warm-up, so the host's launch cost, which CUDA events
+    around a few short launches would count, does not."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    _, _, busy, _ = profiled(lambda: [fn() for _ in range(calls)])
+    return busy / calls * 1e3
+
+
+def print_fold_time(tag, top, busy, rounds):
+    """The fold matmul's kernels (every instance and the row kernel) in a
+    profiled window: ms a round and share of the device time."""
+    sec = sum(s for kname, s in top if "::fold_" in kname)
+    print(f"[{tag}]   fold matmul kernels: {sec / rounds * 1e3:.3f} ms/round, "
+          f"{sec / busy:.1%} of device time", flush=True)
+
+
 def bound(n_bytes, n_ops, ops_per_s):
     """(bound ms, "bytes" or "operations")."""
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
@@ -270,6 +299,36 @@ def phase_scan_spills(log):
     if sorted(spills) != list(ops.STATE_SIZES) or any(spills.values()):
         raise SystemExit(f"the scan instances spill or are missing from "
                          f"ptxas's report: {spills}")
+
+
+def phase_fold_spills(log):
+    """Every fold matmul instance (ops.INSTANCES and the row kernel) must be
+    in ptxas's report with 0 bytes of spill stores and loads; prints each
+    one's registers."""
+    from repro_torch.kernels.fold_matmul import ops
+    by_params = {v: k for k, v in ops.INSTANCES.items()}
+    found, name = {}, None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            m = re.search(r"fold_tileILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)"
+                          r"ELi(\d+)ELi(\d+)E", line)
+            name = (by_params.get(tuple(map(int, m.groups())), m.group(0))
+                    if m else "rows" if "fold_matmul_rows_kernel" in line
+                    else None)
+        elif name is not None and "spill stores" in line:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            found[name] = [None, int(m.group(1)) + int(m.group(2))]
+        elif name is not None and "registers" in line:
+            found[name][0] = int(re.search(r"Used (\d+) registers",
+                                           line).group(1))
+            name = None
+    print("[build] fold_matmul instances (registers, spill bytes): " + ", ".join(
+        f"{k}: {tuple(v)}" for k, v in sorted(found.items())), flush=True)
+    if set(found) != set(ops.INSTANCES) | {"rows"} or any(
+            spill for _, spill in found.values()):
+        raise SystemExit(f"fold matmul instances spill or are missing from "
+                         f"ptxas's report: {found}")
 
 
 def phase_flash_spills(log):
@@ -414,9 +473,10 @@ def phase_quantize_kernel(dev, card):
 # dz, K over samples x pixels), a bias gradient (a broadcast row of ones),
 # fc1's forward, weight and input gradients, the FedAvg sum over 10
 # clients of fc1's 1.6M weights (weights broadcast over 6 members), and a
-# ragged case. layout: "nn" both row-major, "tn" A transposed, "nt" B
-# transposed, "ones" A a broadcast row of ones, "wbc" A one row a batch
-# entry, broadcast.
+# ragged case; then the main path's own: the 8 products of a compressed
+# `mnist_paper` local step (phase 4: 10 clients, b* = 16) with K >= 512.
+# layout: "nn" both row-major, "tn" A transposed, "nt" B transposed, "ones"
+# A a broadcast row of ones, "wbc" A one row a batch entry, broadcast.
 FOLD_CASES = {
     "ragged": (3, 70, 33, 65, "nn"),
     "conv2_fwd": (60, 6272, 800, 64, "nn"),
@@ -427,9 +487,20 @@ FOLD_CASES = {
     "fc1_wgrad": (60, 3136, 32, 512, "tn"),
     "fc1_dgrad": (60, 32, 512, 3136, "nt"),
     "fedavg_fc1": (6, 1, 10, 1605632, "wbc"),
+    "paper_conv2_fwd": (10, 3136, 800, 64, "nn"),
+    "paper_fc1_fwd": (10, 16, 3136, 512, "nn"),
+    "paper_fc2_fwd": (10, 16, 512, 10, "nn"),
+    "paper_fc1_dgrad": (10, 16, 512, 3136, "nt"),
+    "paper_conv2_wgrad": (10, 800, 3136, 64, "tn"),
+    "paper_conv2_bias": (10, 1, 3136, 64, "ones"),
+    "paper_conv1_wgrad": (10, 25, 12544, 32, "tn"),
+    "paper_conv1_bias": (10, 1, 12544, 32, "ones"),
 }
 FOLD_TIMED = "conv2_wgrad"
 FOLD_RTOL = 1e-4
+# A chain of K dependent fmas takes at least K x this many cycles of the
+# SM clock (the float32 fma's latency on Hopper).
+FMA_LATENCY_CYCLES = 4
 
 
 def fold_inputs(name, dev):
@@ -451,21 +522,58 @@ def fold_inputs(name, dev):
     return a, b
 
 
+def sm_clock_hz():
+    """The card's highest SM clock (nvidia-smi clocks.max.sm), in Hz."""
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return float(res.stdout.strip().splitlines()[0]) * 1e6
+
+
+def fold_work(batch, M, K, N, layout):
+    """(bytes, operations) of a fold matmul case: each operand read once and
+    C written once; 2 M N K float32 operations."""
+    a_elems = (1 if layout == "ones" else M * K if layout == "wbc"
+               else batch * M * K)
+    return (4 * (a_elems + batch * K * N + batch * M * N),
+            2 * batch * M * N * K)
+
+
+def same_bits(x, y):
+    """Equal bit for bit, signs of zero and NaN payloads included."""
+    import torch
+    return torch.equal(x.contiguous().view(torch.int32),
+                       y.contiguous().view(torch.int32))
+
+
 def phase_fold_matmul_kernel(dev, card):
     """The fold matmul against its plain version (torch.matmul, TF32 off)
-    at the Study group's shapes, and its defining property: the rows of a
-    call do not move when it has more rows or K is padded with zeros."""
+    at the Study group's and the main path's shapes; every route bit for
+    bit against the row route (the oracle), and its defining property: the
+    rows of a call do not move when it has more rows or K is padded with
+    zeros."""
     import torch
     from repro_torch.kernels.fold_matmul import ops, ref
+    sm_hz = sm_clock_hz()
+    print(f"[kernel] fold_matmul: chain bound at {FMA_LATENCY_CYCLES} cycles "
+          f"a fma and the SM's highest clock, {sm_hz / 1e6:.0f} MHz",
+          flush=True)
     max_err, timed = 0.0, {}
     for name, (batch, M, K, N, layout) in FOLD_CASES.items():
         a, b = fold_inputs(name, dev)
+        route = ops.route_for(batch, M, N, K)
+        instance = ops.instance_for(route, batch, M, N)
         c = ops.fold_matmul(a, b)
+        oracle = ops.fold_matmul(a, b, route="rows")
         torch.cuda.synchronize()
         plain = ref.fold_matmul_ref(a, b)
         err = float((c - plain).abs().max())
         scale = max(1.0, float(plain.abs().max()))
         max_err = max(max_err, err)
+        # Every route, bit for bit against the row route.
+        routes = {r: same_bits(ops.fold_matmul(a, b, route=r), oracle)
+                  for r in ("tiles", "panel")}
         # More rows (M), and K padded with zeros: the first rows agree bit
         # for bit.
         m = max(1, M // 2)
@@ -474,36 +582,46 @@ def phase_fold_matmul_kernel(dev, card):
         a_pad = torch.cat([a, a.new_zeros(batch, M, pad)], dim=2)
         b_pad = torch.cat([b, b.new_zeros(batch, pad, N)], dim=1)
         padded = ops.fold_matmul(a_pad, b_pad)
-        # The other route gives the same bits.
-        route = ops.route_for(batch, M, N)
-        other = ops.fold_matmul(a, b, route="rows" if route == "tiles"
-                                else "tiles")
-        stable = bool(torch.equal(half, c[:, :m])) and bool(
-            torch.equal(padded, c)) and bool(torch.equal(other, c))
+        stable = same_bits(half, c[:, :m]) and same_bits(padded, c)
         print(f"[kernel] fold_matmul {name} ({batch}, {M}, {K}) @ ({batch}, "
-              f"{K}, {N}) {layout}, {route} route: max |kernel - plain| "
-              f"{err:.3g} (scale {scale:.3g}, tol {FOLD_RTOL:g} of it); rows "
-              f"unmoved by more rows, by {pad} zero k and by the other "
-              f"route: {stable}", flush=True)
-        if not err <= FOLD_RTOL * scale or not stable:
+              f"{K}, {N}) {layout}, {route} route ({instance}): max |kernel "
+              f"- plain| {err:.3g} (scale {scale:.3g}, tol {FOLD_RTOL:g} of "
+              f"it); tiles and panel equal to rows as int32: {routes}; rows "
+              f"unmoved by more rows and by {pad} zero k: {stable}",
+              flush=True)
+        if (not err <= FOLD_RTOL * scale or not stable
+                or not all(routes.values())):
             raise SystemExit(f"fold_matmul disagrees or is not stable on "
                              f"{name}")
         ms = time_ms(lambda: ops.fold_matmul(a, b), warmup=2, calls=5, reps=5)
+        rows_ms = time_ms(lambda: ops.fold_matmul(a, b, route="rows"),
+                          warmup=2, calls=5, reps=5)
         plain_ms = time_ms(lambda: ref.fold_matmul_ref(a, b), warmup=2,
                            calls=5, reps=5)
         library_ms = time_ms(lambda: torch.bmm(a, b), warmup=2, calls=5,
                              reps=5)
-        a_elems = (1 if layout == "ones" else M * K if layout == "wbc"
-                   else batch * M * K)
-        n_bytes = 4 * (a_elems + batch * K * N + batch * M * N)
-        bound_ms, bound_by = bound(n_bytes, 2 * batch * M * N * K,
-                                   FP32_OPS_PER_S)
-        print(f"[kernel] fold_matmul {name} on {card}: kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, torch.bmm {library_ms:.4f} ms, "
-              f"bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of "
-              f"bound", flush=True)
+        on_dev = [device_ms(fn) for fn in (
+            lambda: ops.fold_matmul(a, b),
+            lambda: ops.fold_matmul(a, b, route="rows"),
+            lambda: torch.bmm(a, b))]
+        n_bytes, n_ops = fold_work(batch, M, K, N, layout)
+        terms = {"bytes": n_bytes / HBM_BYTES_PER_S * 1e3,
+                 "operations": n_ops / FP32_OPS_PER_S * 1e3,
+                 "chain": K * FMA_LATENCY_CYCLES / sm_hz * 1e3}
+        binds = max(terms, key=terms.get)
+        print(f"[kernel] fold_matmul {name} on {card}: {route} "
+              f"({instance}) {ms:.4f} ms ({on_dev[0]:.4f} on the device), "
+              f"rows {rows_ms:.4f} ms ({on_dev[1]:.4f}), plain "
+              f"{plain_ms:.4f} ms, torch.bmm {library_ms:.4f} ms "
+              f"({on_dev[2]:.4f}), bound "
+              f"{terms[binds]:.4f} ms ({binds}; bytes {terms['bytes']:.4f}, "
+              f"operations {terms['operations']:.4f}, chain "
+              f"{terms['chain']:.4f}), {terms[binds] / on_dev[0]:.1%} of bound "
+              "on the device", flush=True)
+        # The JSON line's bound: bytes or operations, as for every kernel.
+        bound_ms, bound_by = bound(n_bytes, n_ops, FP32_OPS_PER_S)
         timed[name] = (ms, plain_ms, bound_ms, bound_by, library_ms)
-        del a, b, c, plain, half, a_pad, b_pad, padded, other
+        del a, b, c, oracle, plain, half, a_pad, b_pad, padded
     ms, plain_ms, bound_ms, bound_by, library_ms = timed[FOLD_TIMED]
     return {"name": "fold_matmul", "route": "cuda",
             "source": "src/repro_torch/kernels/fold_matmul/csrc/"
@@ -856,6 +974,7 @@ def phase_fl_main_path(counters, name="mnist_paper", tag="slice",
     q_sec = sum(sec for kname, sec in top if "quantize_rows" in kname)
     print(f"[{tag}]   quantize kernel: {q_sec / 3 * 1e3:.3f} ms/round, "
           f"{q_sec / busy:.1%} of device time", flush=True)
+    print_fold_time(tag, top, busy, 3)
     return {"launches": launches, "s_per_round": statistics.median(per_round),
             "busy": busy / wall, "history": res.history}
 
@@ -1052,6 +1171,7 @@ def phase_fl_fleet(counters):
     for kname, sec in top[:8]:
         print(f"[fleet]   {sec / 3 * 1e3:9.3f} ms/round {sec / busy:6.1%}  "
               f"{kname[:90]}")
+    print_fold_time("fleet", top, busy, 3)
     return launches
 
 
@@ -1696,6 +1816,7 @@ def phase_study_cost(card, fig2):
         for kname, sec in top[:8]:
             print(f"[{tag}]   {sec * 1e3:9.3f} ms/round {sec / busy:6.1%}  "
                   f"{kname[:90]}")
+        print_fold_time(tag, top, busy, 1)
 
 
 # -- serve paths -----------------------------------------------------------------
@@ -2021,6 +2142,7 @@ def main() -> int:
     # -- 2. build ------------------------------------------------------------
     logs = phase_build(counters)
     phase_scan_spills(logs["selective_scan"])
+    phase_fold_spills(logs["fold_matmul"])
     phase_flash_spills(logs["flash_attention"])
     phase_flash_sass()
 

@@ -196,11 +196,14 @@ def test_fold_matmul_rejects_what_the_kernel_does_not_take():
 
 
 def test_fold_matmul_route_follows_the_shape():
-    """Few rows, or too few 64 x 64 tiles to fill the card, take the row
-    route; the rest the tile route (the two give the same bits, held on the
-    card by tests/test_torch_fold_matmul_cuda.py)."""
-    assert fm_ops.route_for(60, 1, 64) == "rows"  # a bias gradient
-    assert fm_ops.route_for(6, 1, 1605632) == "rows"  # FedAvg's client sum
-    assert fm_ops.route_for(60, 25, 32) == "rows"  # conv1's weight gradient
-    assert fm_ops.route_for(60, 800, 64) == "tiles"  # conv2's
-    assert fm_ops.route_for(60, 6272, 64) == "tiles"  # conv2's forward
+    """Short K with few rows or columns takes the row route, long K with
+    few outputs the panel route, products that fill the card the tile
+    route (all give the same bits, held on the card by
+    tests/test_torch_fold_matmul_cuda.py)."""
+    assert fm_ops.route_for(60, 1, 64, 6272) == "panel"  # a bias gradient
+    assert fm_ops.route_for(6, 1, 1605632, 10) == "rows"  # FedAvg's client sum
+    assert fm_ops.route_for(60, 25, 32, 25088) == "panel"  # conv1's weight gradient
+    assert fm_ops.route_for(60, 800, 64, 6272) == "tiles"  # conv2's
+    assert fm_ops.route_for(10, 800, 64, 3136) == "panel"  # conv2's at 10 clients
+    assert fm_ops.route_for(60, 6272, 64, 800) == "tiles"  # conv2's forward
+    assert fm_ops.route_for(60, 32, 512, 3136) == "tiles"  # fc1's forward
