@@ -19,7 +19,8 @@ Phases (each prints its own lines; any failure exits non-zero):
      of ops.HEAD_DIMS is missing;
   3. kernels: each kernel against its plain PyTorch version on the card,
      on several cases and at its main paths' shapes (quantize: exact
-     equality, timed at the FL shapes of phases 4, 10 and 11; flash
+     equality, timed at the FL shapes of phases 4, 10, 11 and 18 (a loop
+     client's 1,628 rows), also on the device alone (torch.profiler); flash
      attention: atol 2e-6 in float32 (the CUDA-core kernel), 2e-2 in bf16
      (the wgmma + TMA kernel), at head_dims 32, 64, 80, 128 and 256, timed
      at the prefill shapes of qwen2-0.5b, gemma-7b and zamba2-2.7b's shared
@@ -27,7 +28,8 @@ Phases (each prints its own lines; any failure exits non-zero):
      selective scan: 3e-5 of max(1, max |plain|); fold matmul: 1e-4 of
      max(1, max |plain|) against torch.matmul at the Fig. 2 MNIST Study
      group's product shapes and at compressed `mnist_paper`'s own (the
-     `paper_*` cases), the tiles and panel routes equal to the row route
+     `paper_*` cases, and four of them at batch 1 as a loop client runs
+     them, the `loop_*` cases), the tiles and panel routes equal to the row route
      (the oracle) as int32, and its rows unmoved bit for bit by more rows
      and by zeros appended to K), then its time per launch beside the plain
      version's time, the card's bound for the same work and, where one
@@ -135,11 +137,28 @@ Phases (each prints its own lines; any failure exits non-zero):
      group's s/round beside the sum of its members' s/round alone, its
      padding share, peak memory and a profiled round with the fold
      matmul's share (none a gate).
+ 18. the per-round backends, compressed `mnist_paper` at full width from
+     one seed: (a) `scan`, `batched` and `loop`, 3 rounds each: one
+     quantize launch a round on `batched`, one a participating client on
+     `loop` (10 a round), the fold matmul on both and no other kernel;
+     `batched` equal to `scan` (and phase 4's first records) bit for bit;
+     `loop` against `batched`: clock, bits and rounds exact, losses within
+     1e-5 relative, params within 2e-3 (bit identity printed); `loop`'s
+     `run_round` x3 equal to its `run`; (b) uncompressed, `loop` against
+     `batched` within 1e-5 (the fold matmul alone launches); (c) per
+     backend, 3 rounds, `save_state`, `load_state` into a fresh simulator
+     and 3 more rounds, bit for bit against 6 rounds alone, and the card's
+     checkpoint refused by a CPU simulator (the generator-kind
+     ValueError); (d) steady-state s/round of `batched` and `loop` (6
+     rounds each, no eval) beside phase 4's `scan`, and one profiled `loop`
+     round (busy share, launches, the fold matmul's ms); none of (d) a
+     gate.
 
-Phases 10, 11, 12 and 17 run right after phase 5, phases 13-16 after phase
-9; quantize's `launches` in the JSON line are those of phases 4, 10, 11, 12
-(a, b, c's guarded run and d) and 17 (b), the fold matmul's those of the
-same FL paths and of the quickstart twin and 17 (a, c), flash attention's
+Phases 10, 11, 12, 18 and 17 run right after phase 5, in that order,
+phases 13-16 after phase 9; quantize's `launches` in the JSON line are
+those of phases 4, 10, 11, 12 (a, b, c's guarded run and d), 17 (b) and
+18, the fold matmul's those of the same FL paths and of the quickstart
+twin and 17 (a, c), flash attention's
 those of phases 6, 13 and 15 (24 + 28 + 9). The last lines are the
 kernels' JSON record, the card's name and power limit, and
 {"ok": true, "device": {...}}. The script exits non-zero
@@ -240,8 +259,13 @@ def device_ms(fn, calls=10):
     import torch
     fn()
     torch.cuda.synchronize()
-    _, _, busy, _ = profiled(lambda: [fn() for _ in range(calls)])
-    return busy / calls * 1e3
+    # The profiler now and then reports a window without its device events
+    # (no device time at all); such a window is taken again.
+    for _ in range(3):
+        _, _, busy, _ = profiled(lambda: [fn() for _ in range(calls)])
+        if busy > 0:
+            return busy / calls * 1e3
+    raise SystemExit("torch.profiler reported no device time in 3 windows")
 
 
 def print_fold_time(tag, top, busy, rounds):
@@ -390,7 +414,7 @@ def phase_flash_sass():
 # -- quantize ----------------------------------------------------------------
 
 QUANTIZE_SHAPES = {"slice_16280x1024": 16280, "cifar_21100x1024": 21100,
-                   "fleet_65120x1024": 65120}
+                   "fleet_65120x1024": 65120, "loop_1628x1024": 1628}
 
 
 def quantize_cases(dev):
@@ -411,7 +435,8 @@ def quantize_cases(dev):
     cases["non_finite_rows"] = bad
     # The FL paths' shapes, one launch a round: mnist_paper's 10 clients x
     # 1,628 rows of 1024, cifar_paper's 10 x 2,110, and a fleet of 4
-    # mnist_paper runs, 4 x 10 x 1,628.
+    # mnist_paper runs, 4 x 10 x 1,628; then one launch a participating
+    # client on the loop backend (phase 18): 1,628 rows.
     for name, rows in QUANTIZE_SHAPES.items():
         cases[name] = torch.randn(rows, 1024, generator=g) * 1e-3
     return {k: v.to(dev) for k, v in cases.items()}
@@ -445,6 +470,7 @@ def phase_quantize_kernel(dev, card):
         u = ref.stochastic_noise(torch.Generator(device=dev).manual_seed(1),
                                  x.shape)
         ms = time_ms(lambda: ops.quantize(x, u))
+        dev_ms = device_ms(lambda: ops.quantize(x, u))
         plain_ms = time_ms(lambda: ref.quantize_ref(x, u))
         R, D = x.shape
         # x and u read once (float32), codes written once (int8), one scale
@@ -452,10 +478,11 @@ def phase_quantize_kernel(dev, card):
         n_bytes = R * D * (4 + 4 + 1) + R * 4
         n_ops = 7 * R * D  # abs, max, divide, add, floor, two-sided clamp
         bound_ms, bound_by = bound(n_bytes, n_ops, FP32_OPS_PER_S)
-        print(f"[kernel] quantize {R}x{D} on {card}: kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}:"
-              f" {n_bytes / 1e6:.1f} MB), {bound_ms / ms:.1%} of bound",
-              flush=True)
+        print(f"[kernel] quantize {R}x{D} on {card}: kernel {ms:.4f} ms "
+              f"({dev_ms:.4f} on the device), plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}: {n_bytes / 1e6:.1f} MB), "
+              f"{bound_ms / ms:.1%} of bound ({bound_ms / dev_ms:.1%} on the "
+              "device)", flush=True)
         timed[name] = (ms, plain_ms, bound_ms, bound_by)
     ms, plain_ms, bound_ms, bound_by = timed["slice_16280x1024"]
     return {"name": "quantize", "route": "cuda",
@@ -474,7 +501,8 @@ def phase_quantize_kernel(dev, card):
 # fc1's forward, weight and input gradients, the FedAvg sum over 10
 # clients of fc1's 1.6M weights (weights broadcast over 6 members), and a
 # ragged case; then the main path's own: the 8 products of a compressed
-# `mnist_paper` local step (phase 4: 10 clients, b* = 16) with K >= 512.
+# `mnist_paper` local step (phase 4: 10 clients, b* = 16) with K >= 512,
+# and four of them at batch 1, a client of the loop backend (phase 18).
 # layout: "nn" both row-major, "tn" A transposed, "nt" B transposed, "ones"
 # A a broadcast row of ones, "wbc" A one row a batch entry, broadcast.
 FOLD_CASES = {
@@ -495,6 +523,10 @@ FOLD_CASES = {
     "paper_conv2_bias": (10, 1, 3136, 64, "ones"),
     "paper_conv1_wgrad": (10, 25, 12544, 32, "tn"),
     "paper_conv1_bias": (10, 1, 12544, 32, "ones"),
+    "loop_conv2_fwd": (1, 3136, 800, 64, "nn"),
+    "loop_conv2_wgrad": (1, 800, 3136, 64, "tn"),
+    "loop_fc1_fwd": (1, 16, 3136, 512, "nn"),
+    "loop_conv1_wgrad": (1, 25, 12544, 32, "tn"),
 }
 FOLD_TIMED = "conv2_wgrad"
 FOLD_RTOL = 1e-4
@@ -1453,6 +1485,232 @@ def phase_dropout_fleet(counters, card):
     return launches
 
 
+# -- the per-round backends (phase 18) -------------------------------------------
+
+# The full record of a round, for runs that must repeat each other exactly.
+FULL_RECORD_FIELDS = RECORD_FIELDS + ("train_loss", "test_acc")
+# loop against batched (the reference's tests/test_simulation_backends.py):
+# losses within 1e-5 relative; params within 2e-3 compressed (a flipped
+# stochastic-rounding code moves a weight by one quantizer step) and
+# 1e-5 uncompressed.
+LOOP_LOSS_RTOL = 1e-5
+LOOP_PARAM_ATOL = {True: 2e-3, False: 1e-5}
+
+
+def _full_records(res):
+    return [tuple(getattr(r, f) for f in FULL_RECORD_FIELDS)
+            for r in res.history]
+
+
+def _params_same(a, b):
+    from repro_torch.utils.tree import leaves
+    return all(same_bits(x, y) for x, y in zip(leaves(a), leaves(b)))
+
+
+def _params_gap(a, b):
+    from repro_torch.utils.tree import leaves
+    return max(float((x - y).abs().max()) for x, y in zip(leaves(a),
+                                                          leaves(b)))
+
+
+def _check_loop_rounds(tag, launches, participants):
+    """A compressed loop round quantizes each participant alone: one launch
+    a participating client a round."""
+    if launches["quantize"] != sum(participants):
+        raise SystemExit(f"[{tag}] expected one quantize launch a "
+                         f"participating client ({sum(participants)} in "
+                         f"{len(participants)} rounds), got "
+                         f"{launches['quantize']}")
+
+
+def _loop_vs_batched(tag, loop, batched, compressed):
+    """loop against batched: clock, bits and rounds exact, losses within
+    LOOP_LOSS_RTOL, params within LOOP_PARAM_ATOL; bit identity printed."""
+    exact, loss, param, _ = _gaps(loop, batched)
+    same = _params_same(loop.params, batched.params)
+    atol = LOOP_PARAM_ATOL[compressed]
+    print(f"[{tag}] loop vs batched: clock, bits and rounds exact {exact}; "
+          f"max rel loss gap {loss:.3g} (tol {LOOP_LOSS_RTOL:g}); params gap "
+          f"{param:.3g} (tol {atol:g}); params bit for bit {same}; losses "
+          f"equal {[x.train_loss == y.train_loss for x, y in zip(loop.history, batched.history)]}",
+          flush=True)
+    if not (exact and loss <= LOOP_LOSS_RTOL and param <= atol):
+        raise SystemExit(f"[{tag}] the loop backend breaks its contract "
+                         "against the batched one")
+    return same
+
+
+def phase_backends(counters, card, paper):
+    """18 (a): compressed mnist_paper on each synchronous backend for 3
+    rounds: batched bit for bit against scan (and phase 4's records), loop
+    within the reference's contract against batched; launches per round."""
+    import torch
+    spec = compressed_spec("mnist_paper")
+    runs, fl_launches = {}, []
+    for backend in ("scan", "batched", "loop"):
+        sim = spec.replace(backend=backend).build()
+        if sim.device.type != "cuda":
+            raise SystemExit(f"the {backend} backend was built on "
+                             f"{sim.device}")
+        t0 = time.perf_counter()
+        (_, res), launches = _launched(counters, lambda: sim.run(
+            sim.init(), max_rounds=3, eval_every=3))
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        fl_launches.append(launches)
+        runs[backend] = res
+        print(f"[backends] {backend}: 3 rounds of compressed mnist_paper in "
+              f"{elapsed:.4f} s (warm-up included), launches {launches}, "
+              f"losses {[r.train_loss for r in res.history]}", flush=True)
+        if backend == "loop":
+            _check_loop_rounds("backends", launches,
+                               [spec.fed.n_devices] * 3)
+        else:
+            _check_quantize_rounds("backends", launches, 3)
+        if not all(math.isfinite(r.train_loss) for r in res.history):
+            raise SystemExit(f"non-finite train loss on {backend}")
+    same = (_full_records(runs["batched"]) == _full_records(runs["scan"])
+            == [tuple(getattr(r, f) for f in FULL_RECORD_FIELDS)
+                for r in paper["history"][:3]])
+    bits = _params_same(runs["batched"].params, runs["scan"].params)
+    print(f"[backends] batched vs scan (and phase 4's first 3 records): "
+          f"records equal {same}, params bit for bit {bits}", flush=True)
+    if not (same and bits):
+        raise SystemExit("the batched backend differs from scan")
+    loop_bits = _loop_vs_batched("backends", runs["loop"], runs["batched"],
+                                 True)
+    # run_round x3 on the loop backend: run()'s rounds, bit for bit.
+    sim = spec.replace(backend="loop").build()
+    state, losses = sim.init(), []
+
+    def three_rounds():
+        nonlocal state
+        for _ in range(3):
+            state, m = sim.run_round(state)
+            losses.append(m["train_loss"])
+
+    _, launches = _launched(counters, three_rounds)
+    fl_launches.append(launches)
+    _check_loop_rounds("backends", launches, [spec.fed.n_devices] * 3)
+    rr = (losses == [r.train_loss for r in runs["loop"].history]
+          and _params_same(sim.params(state), runs["loop"].params))
+    print(f"[backends] loop run_round x3: launches {launches}, losses and "
+          f"params equal to run()'s {rr}", flush=True)
+    if not rr:
+        raise SystemExit("loop run_round x3 differs from run()")
+    return fl_launches, loop_bits
+
+
+def phase_backends_uncompressed(counters):
+    """18 (b): uncompressed mnist_paper, loop against batched, 3 rounds:
+    the fold matmul is the only kernel."""
+    from repro_torch.federated import experiment
+    spec = experiment.get("mnist_paper")
+    res, fl_launches = {}, []
+    for backend in ("batched", "loop"):
+        sim = spec.replace(backend=backend).build()
+        (_, res[backend]), launches = _launched(counters, lambda: sim.run(
+            sim.init(), max_rounds=3, eval_every=3))
+        _check_uncompressed(f"backends-uncompressed {backend}", launches)
+        fl_launches.append(launches)
+        print(f"[backends-uncompressed] {backend}: launches {launches}, "
+              f"losses {[r.train_loss for r in res[backend].history]}",
+              flush=True)
+    _loop_vs_batched("backends-uncompressed", res["loop"], res["batched"],
+                     False)
+    return fl_launches
+
+
+def phase_backends_checkpoint(counters):
+    """18 (c): per backend, 3 rounds, save_state, load_state into a fresh
+    simulator, 3 more rounds: records and params bit for bit against an
+    uninterrupted 6-round run; the card's checkpoint refused by a CPU
+    simulator."""
+    import tempfile
+    from repro_torch.federated.simulation import load_state, save_state
+    spec = compressed_spec("mnist_paper")
+    fl_launches = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for backend in ("scan", "batched", "loop"):
+            b_spec = spec.replace(backend=backend)
+
+            def run_both():
+                full_sim = b_spec.build()
+                _, full = full_sim.run(full_sim.init(5), max_rounds=6,
+                                       eval_every=3)
+                first = b_spec.build()
+                mid, _ = first.run(first.init(5), max_rounds=3, eval_every=3)
+                path = str(Path(tmp) / f"{backend}.pkl")
+                save_state(path, mid)
+                fresh = b_spec.build()
+                restored = load_state(path, like=fresh.init())
+                _, tail = fresh.run(restored, max_rounds=3, eval_every=3)
+                return full, tail, path
+
+            (full, tail, path), launches = _launched(counters, run_both)
+            fl_launches.append(launches)
+            same = (_full_records(tail) == _full_records(full)[3:]
+                    and _params_same(tail.params, full.params))
+            print(f"[backends-checkpoint] {backend}: 3 rounds, save_state, "
+                  f"load_state into a fresh simulator, 3 rounds: records "
+                  f"and params bit for bit against 6 rounds alone {same}",
+                  flush=True)
+            if not same:
+                raise SystemExit(f"checkpoint resume on {backend} differs "
+                                 "from the uninterrupted run")
+        cpu = spec.replace(backend="loop").build(device="cpu")
+        refused = []
+        for attempt in (lambda: load_state(path, like=cpu.init()),
+                        lambda: cpu.run(load_state(path), max_rounds=1)):
+            try:
+                attempt()
+            except ValueError as e:
+                refused.append("generator" in str(e))
+            else:
+                refused.append(False)
+        print(f"[backends-checkpoint] the card's checkpoint into a CPU "
+              f"simulator: load_state(like=) and run refuse it with the "
+              f"generator-kind ValueError {refused}", flush=True)
+        if not all(refused):
+            raise SystemExit("a CPU simulator took the card's checkpoint")
+    return fl_launches
+
+
+def phase_backends_cost(counters, card, paper):
+    """18 (d): steady-state s/round of loop and batched beside phase 4's
+    scan, and one profiled loop round (none a gate)."""
+    import torch
+    spec = compressed_spec("mnist_paper").replace(with_eval=False)
+    out = {}
+    for backend in ("batched", "loop"):
+        sim = spec.replace(backend=backend).build()
+        state, _ = sim.run(sim.init(), max_rounds=2)  # warm-up
+        per_round = []
+        for _ in range(2):  # 6 timed rounds: 2 runs of 3 (phase 4's chunks)
+            t0 = time.perf_counter()
+            state, _ = sim.run(state, max_rounds=3, eval_every=3)
+            per_round.append((time.perf_counter() - t0) / 3)
+        out[backend] = (sim, state, per_round)
+    print(f"[backends] steady state on {card}, 6 rounds each (2 runs of 3, "
+          f"no eval): batched {statistics.median(out['batched'][2])!r} s per "
+          f"round, loop {statistics.median(out['loop'][2])!r} (runs "
+          f"{out['batched'][2]!r} and {out['loop'][2]!r}); scan "
+          f"{paper['s_per_round']!r} (phase 4)", flush=True)
+    sim, state, _ = out["loop"]
+    for ops in counters.values():
+        ops.launches = 0
+    _, wall, busy, top = profiled(lambda: sim.run(state, max_rounds=1))
+    launches = {k: ops.launches for k, ops in counters.items()}
+    print(f"[backends] one profiled loop round on {card}: wall {wall:.4f} s, "
+          f"device busy {busy:.4f} s ({busy / wall:.1%}), launches "
+          f"{launches}, profiler on", flush=True)
+    for kname, sec in top[:6]:
+        print(f"[backends]   {sec * 1e3:9.3f} ms/round {sec / busy:6.1%}  "
+              f"{kname[:90]}")
+    print_fold_time("backends", top, busy, 1)
+    return launches
+
+
 # -- the Study: DEFL vs FedAvg vs Rand (phase 17) ------------------------------------
 
 # (a): the twin's Fig. 2 comparison, one scenario, FIG2_SEEDS seeds, up to
@@ -2169,6 +2427,15 @@ def main() -> int:
     fl_launches.append(phase_quorum(counters, card))
     fl_launches.append(phase_guard(counters, card))
     fl_launches.append(phase_dropout_fleet(counters, card))
+
+    # -- 18. the per-round backends: loop, batched, run_round, checkpoints ---
+    launches, loop_bits = phase_backends(counters, card, paper)
+    fl_launches.extend(launches)
+    fl_launches.extend(phase_backends_uncompressed(counters))
+    fl_launches.extend(phase_backends_checkpoint(counters))
+    fl_launches.append(phase_backends_cost(counters, card, paper))
+    print(f"[backends] compressed loop params bit for bit against batched: "
+          f"{loop_bits}", flush=True)
 
     # -- 17. the Study: DEFL vs FedAvg vs Rand -------------------------------
     fig2, fig2_launches = phase_fig2(counters, card)

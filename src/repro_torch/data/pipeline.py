@@ -2,8 +2,9 @@
 
 Copy of repro/data/pipeline.py's `BatchIterator` (the same RNG calls, so
 the same seed draws the same batch indices), with `batch_from` gathering
-from tensors: the simulator uploads the dataset to the device once and
-gathers every batch there from the drawn int32 indices.
+from tensors: the chunked path uploads the dataset to the device once
+and gathers every batch there from the drawn int32 indices, while the
+per-round backends take `next_batch`, gathered on the host.
 """
 from __future__ import annotations
 
@@ -70,6 +71,12 @@ class BatchIterator:
         self._ptr += bs
         return idx
 
+    def next_batch(self) -> Dict[str, np.ndarray]:
+        """The next mini-batch gathered on the host (the per-round backends'
+        path): exactly `batch_from(device_arrays(), next_indices())`, so
+        both styles draw from one RNG stream."""
+        return self.batch_from(self.device_arrays(), self.next_indices())
+
     def device_arrays(self) -> Dict[str, np.ndarray]:
         """The full backing arrays, uploaded once per simulator."""
         return {"x": self.data.x, "y": self.data.y}
@@ -77,6 +84,7 @@ class BatchIterator:
     @staticmethod
     def batch_from(arrays: Dict[str, torch.Tensor], idx: torch.Tensor,
                    ) -> Dict[str, torch.Tensor]:
-        """Gather a batch by global indices from device-resident arrays:
-        with idx shaped (..., B) the leaves come out (..., B, sample...)."""
+        """Gather a batch by global indices from device-resident arrays (or
+        host numpy arrays): with idx shaped (..., B) the leaves come out
+        (..., B, sample...)."""
         return {"x": arrays["x"][idx], "y": arrays["y"][idx]}

@@ -10,11 +10,12 @@ registry of named configurations:
     sim = spec.build()                      # on the CUDA card
     state, res = sim.run(sim.init(), max_rounds=100, eval_every=10)
     fleet = sim.run_fleet(seeds=range(8), max_rounds=100, eval_every=10)
+    loop = spec.replace(backend="loop").build()   # the per-client oracle
 
 The reference's fields for traces, populations with cohorts, client
-sharding, the other backends, asynchronous aggregation and the kernel
-implementation switch are not here: the port runs none of them yet
-(ROADMAP.md, queue 1).
+sharding, asynchronous aggregation (backend='async' and async_spec) and
+the kernel implementation switch are not here: the port runs none of them
+yet (ROADMAP.md, queue 1).
 
 The plan, the data, the partition and the device population are the
 reference's, value for value (numpy copies of its numpy code).
@@ -38,7 +39,7 @@ from repro_torch.federated import scenarios
 from repro_torch.federated.faults import FaultModel
 from repro_torch.federated.partition import (partition_dirichlet,
                                              partition_sizes)
-from repro_torch.federated.simulation import Simulator
+from repro_torch.federated.simulation import BACKENDS, Simulator
 from repro_torch.kernels.quantize.ref import stochastic_noise
 from repro_torch.models import cnn
 from repro_torch.optim.sgd import sgd
@@ -90,6 +91,8 @@ class ExperimentSpec:
                    | 'numerical' (kkt.solve).
     batch_cap      cap applied to a planned b* (paper §VI-B); None
                    disables it.
+    backend        'scan' (default) | 'batched' | 'loop' (simulation.py's
+                   module docstring); 'async' is not ported yet.
     with_eval      wire the test-set accuracy eval into the Simulator.
     """
 
@@ -108,8 +111,19 @@ class ExperimentSpec:
     plan: bool = False
     plan_method: str = "closed_form"
     batch_cap: Optional[int] = 32
+    backend: str = "scan"
     with_eval: bool = True
     label: str = ""
+
+    def __post_init__(self):
+        if self.backend == "async":
+            raise ValueError(
+                "ExperimentSpec: backend='async' (the event queue) is not "
+                "ported yet: ROADMAP.md, queue 1, item 12")
+        if self.backend not in BACKENDS:
+            raise ValueError(
+                f"ExperimentSpec: unknown backend {self.backend!r}; "
+                f"expected one of {BACKENDS}")
 
     def replace(self, **kw) -> "ExperimentSpec":
         return dataclasses.replace(self, **kw)
@@ -291,7 +305,7 @@ class ExperimentSpec:
             data_factory, partition_sizes(parts), fed, sgd(fed.lr), pop,
             wireless=self.wireless, eval_fn=eval_fn, label=label,
             device=dev, noise=noise, eval_batch_fn=eval_batch_fn,
-            scenario=ref, faults=self.faults,
+            scenario=ref, faults=self.faults, backend=self.backend,
             masked_loss_fn=lambda p, batch, m, n: cnn.cnn_loss_masked(
                 cfg, p, batch, m, n),
             value_and_grad=lambda p, batch, m=None, n=None: (

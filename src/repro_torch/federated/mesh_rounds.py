@@ -62,6 +62,32 @@ def vmapped_value_and_grad(loss_fn: Callable,
     return value_and_grad
 
 
+def local_steps(value_and_grad: Callable, opt: Optimizer, params,
+                opt_state, batches):
+    """V SGD steps of every stacked client on its own batches (leaves (C,
+    V, ...)): (params_C', opt_C', [loss (C,) of each step])."""
+    losses = []
+    for v in range(next(iter(batches.values())).shape[1]):
+        grads, loss = value_and_grad(
+            params, {k: b[:, v] for k, b in batches.items()})
+        updates, opt_state = opt.update(grads, opt_state, params)
+        params = apply_updates(params, updates)
+        losses.append(loss)
+    return params, opt_state, losses
+
+
+def fold_mean(losses) -> torch.Tensor:
+    """The mean of a sequence of loss tensors as a left fold, as in the
+    reference: ((0 + l_0) + l_1) + ... over len(losses), elementwise."""
+    total = 0.0
+    for loss in losses:
+        total = total + loss
+    # Over a tensor: a Python number would make CUDA multiply by its
+    # rounded reciprocal, an ulp away from the envelope form's division
+    # by v_count.
+    return total / torch.full_like(total, len(losses))
+
+
 def local_steps_fn(value_and_grad: Callable, opt: Optimizer):
     """(params_C, opt_C, batches) -> (params_C', opt_C', mean_loss (C,)).
 
@@ -69,21 +95,12 @@ def local_steps_fn(value_and_grad: Callable, opt: Optimizer):
     batches; value_and_grad(params_C, batch) gives every client's gradient
     and loss at once (vmapped_value_and_grad, or a model's own stacked
     form such as cnn.cnn_value_and_grad). The V-step loss mean is a left
-    fold, as in the reference."""
+    fold (fold_mean)."""
 
     def run(params, opt_state, batches):
-        V = next(iter(batches.values())).shape[1]
-        total = 0.0
-        for v in range(V):
-            grads, loss = value_and_grad(
-                params, {k: b[:, v] for k, b in batches.items()})
-            updates, opt_state = opt.update(grads, opt_state, params)
-            params = apply_updates(params, updates)
-            total = total + loss
-        # Over a tensor: a Python number would make CUDA multiply by its
-        # rounded reciprocal, an ulp away from the envelope form's
-        # division by v_count.
-        return params, opt_state, total / torch.full_like(total, V)
+        params, opt_state, losses = local_steps(value_and_grad, opt, params,
+                                                opt_state, batches)
+        return params, opt_state, fold_mean(losses)
 
     return run
 
@@ -321,30 +338,25 @@ def build_round_step(value_and_grad: Callable, opt: Optimizer,
     return round_step
 
 
-def build_fleet_chunk(value_and_grad: Callable, opt: Optimizer,
-                      n_clients: int,
-                      compress: bool, batch_from: Callable, noise: Callable,
+def build_fleet_round(value_and_grad: Callable, opt: Optimizer,
+                      n_clients: int, compress: bool, noise: Callable,
                       rows: int, guard=None, quorum=None,
                       envelope: bool = False):
-    """A chunk of rounds for S members (fleet runs; S = 1 for one run)
-    with no host synchronisation inside:
-    chunk_step(params, opt_state, generators, weights, data, idx,
-    mask=None, env=None) -> (params', opt_state', ys). The members are
-    folded into the client axis: params and opt_state leaves are (S*C, ...), members
-    major, so each round is ONE value_and_grad call over all S*C clients
-    and one per-member weighted FedAvg. idx (R, S*C, V, B) holds the
-    global sample indices of R rounds, gathered on the device from `data`
-    by `batch_from`.
+    """One round for S members folded into the client axis:
+    round_fn(params, opt_state, generators, weights, batches, mask=None,
+    env=None) -> (params', opt_state', ys). params and opt_state leaves
+    are (S*C, ...), members major, so the round is ONE value_and_grad call
+    over all S*C clients and one per-member weighted FedAvg; batches
+    leaves are (S*C, V, B, ...).
 
-    ys holds device tensors, one entry a round along axis 1: 'loss' (S,
-    R), each member's train loss. Without a mask it is the unweighted
-    client mean, as the reference's scan path reports. With mask (R,
-    S*C), a scenario's participation (weights are then the raw sizes,
-    see build_round_step), it is the mean over the post-guard
-    participants, NaN on a round without one, and ys adds
-    'n_participants' (S, R), 'finite' (S, R, C) (each client's loss
-    finite: the DivergenceError diagnostic) and, with quorum, 'rejected'
-    (S, R).
+    ys holds device tensors: 'loss' (S,), each member's train loss.
+    Without a mask it is the unweighted client mean, as the reference's
+    batched and scan paths report. With mask (S*C,), a scenario's
+    participation (weights are then the raw sizes, see build_round_step),
+    it is the mean over the post-guard participants, NaN on a round
+    without one, and ys adds 'n_participants' (S,), 'finite' (S, C) (each
+    client's loss finite: the DivergenceError diagnostic) and, with
+    quorum, 'rejected' (S,).
 
     quorum (count, policy) gates each member's round on its post-guard
     participation: below count raises 'rejected', and under 'reject' the
@@ -352,54 +364,86 @@ def build_fleet_chunk(value_and_grad: Callable, opt: Optimizer,
     for bit while its noise generator still advances (the reference's key
     advances too: mesh_rounds.py:681-690).
 
-    With compress, each round draws member s's quantizer noise as one
+    With compress, the round draws member s's quantizer noise as one
     noise(generators[s], (C, rows, 1024)) call, in member order (the
     draws a run of that member alone makes), and quantizes all S*C
     clients' updates in ONE kernel launch.
 
-    envelope=True is the Study's group chunk: the members may run different (b, V) plans padded into one (V_env,
-    B_env) envelope (idx (R, S*C, V_env, B_env), padded entries 0), and
-    env holds their per-row envelope masks (envelope_local_steps_fn)."""
+    envelope=True is the Study's group round: the members may run
+    different (b, V) plans padded into one (V_env, B_env) envelope
+    (batches leaves (S*C, V_env, B_env, ...), padded entries 0), and env
+    holds their per-row envelope masks (envelope_local_steps_fn)."""
     step = build_round_step(
         value_and_grad, opt, "int8_stochastic" if compress else "allreduce",
-        guard,
-        envelope)
+        guard, envelope)
     C = n_clients
+
+    def round_fn(params, opt_state, generators, weights, batches, mask=None,
+                 env=None):
+        u = None
+        if compress:
+            us = [noise(g, (C, rows, compression.ROW)) for g in generators]
+            u = us[0] if len(us) == 1 else torch.cat(us)
+        new_p, new_s, per_client, m_eff = step(
+            params, opt_state, batches, weights, u, mask, env)
+        if mask is None:
+            return new_p, new_s, {"loss": _client_sum(per_client, C) / C}
+        msk = m_eff.reshape(-1, C)
+        n = torch.sum(msk, dim=1)
+        loss = (_client_sum(torch.where(m_eff > 0, per_client, 0.0), C)
+                / torch.where(n > 0, n, 1.0))
+        ys = {"loss": torch.where(n > 0, loss, float("nan")),
+              "n_participants": n,
+              "finite": torch.isfinite(per_client).reshape(-1, C)}
+        if quorum is not None:
+            rejected = n < quorum[0]
+            ys["rejected"] = rejected
+            if quorum[1] == "reject":
+                keep = lambda nw, old: torch.where(  # noqa: E731
+                    _rows(rejected, nw), old.to(nw.dtype), nw)
+                new_p = tree_map(keep, new_p, params)
+                new_s = tree_map(keep, new_s, opt_state)
+        return new_p, new_s, ys
+
+    return round_fn
+
+
+def build_fleet_chunk(value_and_grad: Callable, opt: Optimizer,
+                      n_clients: int,
+                      compress: bool, batch_from: Optional[Callable],
+                      noise: Callable, rows: int, guard=None, quorum=None,
+                      envelope: bool = False):
+    """A chunk of rounds of `build_fleet_round` for S members (fleet runs;
+    S = 1 for one run) with no host synchronisation inside:
+    chunk_step(params, opt_state, generators, weights, data, idx,
+    mask=None, env=None) -> (params', opt_state', ys).
+
+    With idx (R, S*C, V, B), the global sample indices of R rounds, each
+    round's batches are gathered on the device from `data` (the dataset
+    uploaded once) by `batch_from`. With idx None, `data` holds the
+    chunk's batches themselves, leaves (R, S*C, V, B, ...), stacked on the
+    host (client.stack_chunk_batches) and uploaded in one transfer: the
+    path of data sources without the index protocol. mask is (R, S*C) or
+    None, and ys stacks each round's outputs along axis 1 ('loss' (S, R),
+    and so on)."""
+    round_fn = build_fleet_round(value_and_grad, opt, n_clients, compress,
+                                 noise, rows, guard, quorum, envelope)
 
     def chunk_step(params, opt_state, generators, weights, data: Dict, idx,
                    mask=None, env=None):
-        ys = {"loss": [], "n_participants": [], "finite": [], "rejected": []}
-        for r in range(idx.shape[0]):
-            u = None
-            if compress:
-                us = [noise(g, (C, rows, compression.ROW))
-                      for g in generators]
-                u = us[0] if len(us) == 1 else torch.cat(us)
-            new_p, new_s, per_client, m_eff = step(
-                params, opt_state, batch_from(data, idx[r]), weights, u,
+        ys: Dict[str, list] = {}
+        n_rounds = (idx.shape[0] if idx is not None
+                    else leaves(data)[0].shape[0])
+        for r in range(n_rounds):
+            batches = (batch_from(data, idx[r]) if idx is not None
+                       else tree_map(lambda x: x[r], data))
+            params, opt_state, y = round_fn(
+                params, opt_state, generators, weights, batches,
                 None if mask is None else mask[r], env)
-            if mask is None:
-                ys["loss"].append(_client_sum(per_client, C) / C)
-                params, opt_state = new_p, new_s
-                continue
-            msk = m_eff.reshape(-1, C)
-            n = torch.sum(msk, dim=1)
-            loss = (_client_sum(torch.where(m_eff > 0, per_client, 0.0), C)
-                    / torch.where(n > 0, n, 1.0))
-            ys["loss"].append(torch.where(n > 0, loss, float("nan")))
-            ys["n_participants"].append(n)
-            ys["finite"].append(torch.isfinite(per_client).reshape(-1, C))
-            if quorum is not None:
-                rejected = n < quorum[0]
-                ys["rejected"].append(rejected)
-                if quorum[1] == "reject":
-                    keep = lambda nw, old: torch.where(  # noqa: E731
-                        _rows(rejected, nw), old.to(nw.dtype), nw)
-                    new_p = tree_map(keep, new_p, params)
-                    new_s = tree_map(keep, new_s, opt_state)
-            params, opt_state = new_p, new_s
+            for k, v in y.items():
+                ys.setdefault(k, []).append(v)
         return params, opt_state, {k: torch.stack(v, dim=1)
-                                   for k, v in ys.items() if v}
+                                   for k, v in ys.items()}
 
     return chunk_step
 

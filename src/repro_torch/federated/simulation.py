@@ -3,29 +3,56 @@
 Runs real training (PyTorch, on the card) while advancing a *simulated*
 wall clock from the paper's delay models (Eqs. 5, 7, 8). Port of the
 reference's `Simulator` (repro/federated/simulation.py) for a dense
-population on its chunked ('scan') driver, with its edge scenarios
-(federated/scenarios.py) and fault layer (federated/faults.py):
+population, with its edge scenarios (federated/scenarios.py) and fault
+layer (federated/faults.py):
 
     sim   = Simulator(loss_fn, params, data_factory, sizes, fed, opt, pop,
-                      scenario="unreliable_edge")
+                      scenario="unreliable_edge", backend="scan")
     state = sim.init(seed)
     state, result  = sim.run(state, max_rounds=100, eval_every=10,
                              recovery=RecoveryPolicy())
+    state, metrics = sim.run_round(state)
     state, records = sim.run_chunk(state, rounds=10)
     fleet = sim.run_fleet(seeds=range(8), max_rounds=100, eval_every=10)
+    save_state(path, state); state = load_state(path, like=sim.init())
 
-A chunk of `eval_every` rounds runs on the device with no host
-synchronisation inside: the batch indices of the whole chunk go up in one
-transfer, batches are gathered on the device from the dataset uploaded
-once, and the per-round train losses come back in one fetch per chunk.
+Three synchronous backends share the same math:
+
+  backend='scan' (default): a chunk of `eval_every` rounds runs on the
+      device with no host synchronisation inside. When every client
+      iterator draws from one shared dataset and speaks the index
+      protocol (data.BatchIterator), the batch indices of the whole chunk
+      go up in one transfer and batches are gathered on the device from
+      the dataset uploaded once; any other data source goes up as
+      host-stacked batches, one upload a chunk. The per-round train
+      losses come back in one fetch per chunk. run_fleet and the Study
+      run on this path.
+  backend='batched': one round step a round (the step the chunked path
+      calls, mesh_rounds.build_fleet_round), fed by one upload of the
+      round's host-stacked batches (client.stack_client_batches). Losses
+      stay on the device until the next `eval_every` boundary. Same
+      batches and noise as 'scan', so the same numbers.
+  backend='loop': the reference's per-client host loop, its oracle for
+      the stacked round: each participating client runs its V steps alone
+      (client.make_local_update, the stacked value-and-grad at N = 1), is
+      compressed alone (one quantize launch a client) and FedAvg is
+      server.aggregate_updates. The round's quantizer noise is the batched
+      round's one (C, rows, 1024) draw, row m for client m, drawn for all
+      M clients whatever the mask (the reference's sequential_client_keys
+      rule), so the three backends stay on one generator stream.
+
 The Eq. 8 clock and the uplink bits come from the float64 host model
 (core/delay.py), exactly as the reference's records do. Under a scenario
-each chunk also uploads the (R, S*C) participation masks its host stream
-drew, and fetches the participant counts, quorum flags and per-client
-finite flags of its rounds with the losses.
+each round (or chunk) also takes the participation masks its host stream
+drew, and reports the participant counts, quorum flags and per-client
+finite flags.
 
 All run state lives in an immutable `SimState`; the methods are
 state-in/state-out and never modify a state's tensors in place.
+
+`FLSimulation` remains as the reference's deprecated shim (one
+`DeprecationWarning` a process) holding a (Simulator, SimState) pair
+behind the old mutable interface.
 """
 from __future__ import annotations
 
@@ -33,6 +60,7 @@ import dataclasses
 import os
 import pickle
 import tempfile
+import warnings
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence
 
@@ -43,12 +71,24 @@ from repro_torch.configs.base import FedConfig, WirelessConfig
 from repro_torch.core import delay
 from repro_torch.device import resolve_device
 from repro_torch.federated import compression, mesh_rounds, scenarios
-from repro_torch.federated.client import stack_chunk_indices
+from repro_torch.federated.client import (
+    client_round,
+    make_local_update,
+    stack_batches,
+    stack_chunk_batches,
+    stack_chunk_indices,
+    stack_client_batches,
+)
 from repro_torch.federated.faults import (DivergenceError, FaultModel,
                                           RecoveryPolicy)
+from repro_torch.federated.server import aggregate_updates
 from repro_torch.kernels.quantize.ref import stochastic_noise
 from repro_torch.optim.api import Optimizer
-from repro_torch.utils.tree import leaves, tree_bytes, tree_map
+from repro_torch.utils.tree import leaves, structure, tree_bytes, tree_map
+
+# The synchronous backends the port runs (the reference's 'async' is ROADMAP
+# queue 1, item 12).
+BACKENDS = ("scan", "batched", "loop")
 
 
 @dataclass
@@ -110,19 +150,23 @@ class SimState:
     """Everything a run advances, as one immutable value.
 
       params_C  stacked (C, ...) client params; every row equals the
-                global model between rounds
-      opt_C     stacked per-client optimizer state
+                global model between rounds ('loop': the global model
+                itself, unstacked, as in the reference)
+      opt_C     stacked per-client optimizer state ('loop': a tuple of
+                the M clients' states)
       rng       state of the run's quantizer-noise generator
                 (torch.Generator.get_state() of a generator on the
-                simulator's device)
+                simulator's device: a CPU generator's and a CUDA
+                generator's states differ in kind, so a state resumes on
+                the kind of device it was made on)
       seed      the seed `Simulator.init` was called with; the data
                 iterators are rebuilt from it
       round     global round cursor (continues across run() calls)
       sim_time  cumulative Eq. 8 simulated seconds
       stream    ScenarioStream.state() snapshot; None means "fresh at
                 `seed`" (and any scenario-less simulator)
-      data      per-client BatchIterator.state() snapshots; None means
-                "fresh at `seed`"
+      data      per-client iterator state() snapshots; None means "fresh
+                at `seed`" (or iterators without snapshots)
 
     No method writes into a state's tensors, so a state stays valid after
     it is passed to run(): the divergence guard keeps the pre-chunk state
@@ -198,15 +242,21 @@ class Simulator:
     """One FL system: M clients with data and a delay model, as pure
     state-in/state-out methods over `SimState`.
 
-    `data` is a factory `seed -> list of per-client BatchIterator`s over
-    ONE shared dataset (uploaded to the device once). `noise(generator,
-    shape)` draws the quantizer's rounding noise when
-    fed.compress_updates is set (default: uint8 draws from the run's
-    generator on the device, kernels/quantize/ref.stochastic_noise).
-    `eval_fn(params) -> {'acc', ...}` evaluates a global model (run);
-    `eval_batch_fn` does so for a stacked (S, ...) member axis in one
-    call (values (S,)), for run_fleet. Both are given or neither. Runs
-    on `device` ("cuda" unless the caller asks for "cpu").
+    `data` is a factory `seed -> list of per-client iterators` (or a list
+    of live iterators, the reference's legacy form: its streams then
+    continue where they are, whatever the seed, and run_fleet refuses it).
+    An iterator gives `next_batch()`, and optionally `state()` /
+    `set_state()` for checkpoints; data.BatchIterator also speaks the
+    index protocol, with which the 'scan' backend uploads the dataset
+    once and gathers batches on the device. `noise(generator, shape)`
+    draws the quantizer's rounding noise when fed.compress_updates is set
+    (default: uint8 draws from the run's generator on the device,
+    kernels/quantize/ref.stochastic_noise). `eval_fn(params) -> {'acc',
+    ...}` evaluates a global model (run); `eval_batch_fn` does so for a
+    stacked (S, ...) member axis in one call (values (S,)), for
+    run_fleet. Both are given or neither. Runs on `device` ("cuda" unless
+    the caller asks for "cpu"), with `backend` 'scan' (default),
+    'batched' or 'loop' (the module docstring).
 
     `scenario` (a scenarios.Scenario or a registered name) draws each
     round's participation mask and channel on the host; `faults` (a
@@ -230,7 +280,7 @@ class Simulator:
         self,
         loss_fn: Callable,  # (params, batch) -> scalar loss
         init_params: Any,
-        data: Callable[[int], List[Any]],
+        data: Any,  # Callable[[int], List[iterator]] | List[iterator]
         data_sizes: np.ndarray,  # D_m
         fed: FedConfig,
         opt: Optimizer,
@@ -245,6 +295,7 @@ class Simulator:
         faults: Optional[FaultModel] = None,
         masked_loss_fn: Optional[Callable] = None,
         value_and_grad: Optional[Callable] = None,
+        backend: str = "scan",
     ):
         # The constructor's arguments, for the recovery path's rebuilt
         # simulator (_recovery_variant).
@@ -254,8 +305,15 @@ class Simulator:
             wireless=wireless, eval_fn=eval_fn, label=label, device=device,
             noise=noise, eval_batch_fn=eval_batch_fn, scenario=scenario,
             faults=faults, masked_loss_fn=masked_loss_fn,
-            value_and_grad=value_and_grad)
+            value_and_grad=value_and_grad, backend=backend)
         self.device = resolve_device(device)
+        if backend == "async":
+            raise ValueError(
+                "backend='async' (the event queue) is not ported yet: "
+                "ROADMAP.md, queue 1, item 12")
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown backend {backend!r}")
+        self.backend = backend
         self.loss_fn = loss_fn
         self._data_src = data
         self.data_sizes = data_sizes
@@ -274,25 +332,21 @@ class Simulator:
             value_and_grad if value_and_grad is not None
             else mesh_rounds.vmapped_value_and_grad(loss_fn, masked_loss_fn))
         self.noise = noise
-        probe = data(fed.seed)
+        probe = self._make_iters(fed.seed)
         if not len(probe) == fed.n_devices == pop.n:
             raise ValueError(
                 f"{len(probe)} client iterators, fed.n_devices="
                 f"{fed.n_devices} and a population of {pop.n}: all three "
                 "must be the client count M")
-        if len({id(it.data) for it in probe}) != 1:
-            raise ValueError(
-                "all client iterators must draw from one shared dataset "
-                "(it is uploaded to the device once)")
         self._init_params = tree_map(
             lambda x: torch.as_tensor(x, dtype=torch.float32,
                                       device=self.device), init_params)
-        arrays = probe[0].device_arrays()
-        self._data_dev = {
-            "x": torch.as_tensor(arrays["x"], dtype=torch.float32,
-                                 device=self.device),
-            "y": torch.as_tensor(arrays["y"], dtype=torch.int64,
-                                 device=self.device)}
+        self._rows = compression.n_rows(self._init_params)
+        # The device-resident data path is the chunked path's, as in the
+        # reference; the per-round backends always take host batches.
+        self._data_dev = self._batch_from = None
+        if backend == "scan":
+            self._detect_device_data(probe)
         w = torch.as_tensor(np.asarray(data_sizes), dtype=torch.float32,
                             device=self.device)
         # Dense rounds take normalised FedAvg weights; scenario rounds take
@@ -325,41 +379,95 @@ class Simulator:
             # full-population Eq. 8 round time.
             nominal = delay.round_time(*self.round_times(), fed.local_rounds)
             self._deadline = self._faults.resolve_deadline(nominal)
-        self._batch_from = type(probe[0]).batch_from
-        self._chunk_fn = self.build_chunk()
+        if backend == "loop":
+            self.local_update = make_local_update(self.value_and_grad, opt)
+        else:
+            # The batched round, also run_round's step on 'scan' (the
+            # stacked state layout is the same).
+            self._round_fn = mesh_rounds.build_fleet_round(
+                self.value_and_grad, opt, fed.n_devices,
+                fed.compress_updates, noise, self._rows, guard=self._guard,
+                quorum=self._quorum_arg())
+        if backend == "scan":
+            self._chunk_fn = self.build_chunk()
+
+    def _quorum_arg(self):
+        return (None if self._quorum is None
+                else (self._quorum, self._quorum_policy))
+
+    def _detect_device_data(self, its) -> None:
+        """The device-resident data path, where the reference's
+        `_detect_device_data` takes it: when every client iterator speaks
+        the index protocol (next_indices, device_arrays) and draws from
+        one shared dataset, the dataset is uploaded once and each chunk
+        uploads only batch indices, gathered on the device (batch_from).
+        Any other source goes up as host-stacked batches, one upload a
+        chunk (client.stack_chunk_batches)."""
+        if (its
+                and all(hasattr(it, "next_indices")
+                        and hasattr(it, "device_arrays") for it in its)
+                and getattr(its[0], "data", None) is not None
+                and len({id(getattr(it, "data", None)) for it in its}) == 1):
+            self._data_dev = {k: _upload(v, self.device)
+                              for k, v in its[0].device_arrays().items()}
+            self._batch_from = type(its[0]).batch_from
 
     def build_chunk(self, envelope: bool = False):
         """This simulator's chunk function (mesh_rounds.build_fleet_chunk);
         envelope=True builds the Study's group chunk over the masked
         loss."""
         return mesh_rounds.build_fleet_chunk(
-            self.value_and_grad, self.opt, self.fed.n_devices, self.fed.compress_updates,
-            self._batch_from, self.noise,
-            compression.n_rows(self._init_params), guard=self._guard,
-            quorum=(None if self._quorum is None
-                    else (self._quorum, self._quorum_policy)),
+            self.value_and_grad, self.opt, self.fed.n_devices,
+            self.fed.compress_updates, self._batch_from, self.noise,
+            self._rows, guard=self._guard, quorum=self._quorum_arg(),
             envelope=envelope)
 
     # -- state construction -------------------------------------------------
     def init(self, seed: Optional[int] = None) -> SimState:
         """A fresh run state at `seed` (default: fed.seed): replicated
-        client params/opt, the noise generator seeded with `seed`, round
-        0, clock 0, and fresh data iterators."""
+        client params/opt ('loop': the global model and M optimizer
+        states), the noise generator seeded with `seed`, round 0, clock 0,
+        and fresh data iterators (a simulator built on a list of live
+        iterators continues them where they are)."""
         seed = int(self.fed.seed if seed is None else seed)
-        params = mesh_rounds.replicate_clients(
-            self._init_params, self.fed.n_devices)
+        if self.backend == "loop":
+            params = self._init_params
+            opt_C: Any = tuple(self.opt.init(params)
+                               for _ in range(self.fed.n_devices))
+        else:
+            params = mesh_rounds.replicate_clients(
+                self._init_params, self.fed.n_devices)
+            opt_C = self.opt.init(params)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
-        return SimState(params_C=params, opt_C=self.opt.init(params),
-                        rng=gen.get_state(), seed=seed)
+        return SimState(params_C=params, opt_C=opt_C, rng=gen.get_state(),
+                        seed=seed)
+
+    def _make_iters(self, seed: int) -> list:
+        src = (self._data_src(seed) if callable(self._data_src)
+               else self._data_src)
+        return list(src)
+
+    @staticmethod
+    def _snapshot_iters(iters) -> Optional[tuple]:
+        """The iterators' state() snapshots, or None when they have none
+        (such an iterator is taken to be stateless)."""
+        if all(hasattr(it, "state") and hasattr(it, "set_state")
+               for it in iters):
+            return tuple(it.state() for it in iters)
+        return None
+
+    @staticmethod
+    def _restore_iters(iters, snap) -> None:
+        for it, st in zip(iters, snap):
+            it.set_state(st)
 
     def _materialize(self, state: SimState):
         """Live host-side streams positioned at `state`: (data iterators,
         scenario stream or None)."""
-        iters = list(self._data_src(state.seed))
+        iters = self._make_iters(state.seed)
         if state.data is not None:
-            for it, snap in zip(iters, state.data):
-                it.set_state(snap)
+            self._restore_iters(iters, state.data)
         stream = None
         if self.scenario is not None:
             stream = self.scenario.stream(self.pop, state.seed)
@@ -375,11 +483,41 @@ class Simulator:
             state, params_C=params_C, opt_C=opt_C, rng=gen.get_state(),
             round=int(rnd), sim_time=float(sim_time),
             stream=None if stream is None else stream.state(),
-            data=tuple(it.state() for it in iters))
+            data=self._snapshot_iters(iters))
+
+    def _placed(self, state: SimState) -> SimState:
+        """`state` with its params and optimizer state on this simulator's
+        device (a checkpoint's come back on the CPU); tensors already
+        there are kept as they are."""
+        on = lambda t: tree_map(lambda x: x.to(self.device), t)  # noqa: E731
+        return dataclasses.replace(state, params_C=on(state.params_C),
+                                   opt_C=on(state.opt_C))
+
+    def _generator(self, state: SimState) -> torch.Generator:
+        """The run's noise generator on this simulator's device, at the
+        state's position. A state made on the other kind of device raises
+        ValueError: a CUDA generator's state cannot be set on a CPU
+        generator, nor the reverse."""
+        gen = torch.Generator(device=self.device)
+        if state.rng.numel() != gen.get_state().numel():
+            raise ValueError(
+                f"the state's noise generator is a {_rng_kind(state.rng)} "
+                f"generator's and this simulator runs on {self.device}: a "
+                "generator's state does not move between the CPU and the "
+                "card, so a state made (or saved) on the card resumes on "
+                "the card, and one made on the CPU on the CPU")
+        gen.set_state(state.rng)
+        return gen
 
     def params(self, state: SimState) -> Any:
-        """The global model in `state` (client row 0)."""
-        return tree_map(lambda x: x[0], state.params_C)
+        """The global model in `state` (client row 0; 'loop' holds it
+        unstacked)."""
+        return self._params_from(state.params_C)
+
+    def _params_from(self, params_C) -> Any:
+        if self.backend == "loop":
+            return params_C
+        return tree_map(lambda x: x[0], params_C)
 
     # -- delay accounting ---------------------------------------------------
     def _update_bits(self) -> float:
@@ -401,7 +539,8 @@ class Simulator:
 
     # -- fault semantics (host float64 side) ---------------------------------
     def _chunk_uplink(self, chunk):
-        """(mask, t_cm) of a chunk realization, (R, M) each: the effective
+        """(mask, t_cm) of a chunk realization, (R, M) each, or of one
+        round's realization, (M,) each: the effective
         per-client uplink times (retransmission sums on the fault path,
         single-shot Eq. 6 otherwise) and the aggregation mask after the
         deadline cut (clients whose V*t_cp + t_cm exceeds the deadline stay
@@ -435,6 +574,9 @@ class Simulator:
             rec = history[i]
             n_p = rec.n_participants
             if not np.isfinite(rec.train_loss) and (n_p is None or n_p > 0):
+                fin = finites[i] if i < len(finites) else None
+                if torch.is_tensor(fin):
+                    fin = fin.cpu().numpy()
                 raise DivergenceError(
                     f"train loss became non-finite ({rec.train_loss}) at "
                     f"round {rec.round} with "
@@ -443,27 +585,33 @@ class Simulator:
                     "snapshot, .history the records up to the failure",
                     state=snap, history=history[:i + 1], round=rec.round,
                     faults=self._faults, guard=self._guard,
-                    finite_mask=finites[i] if i < len(finites) else None)
+                    finite_mask=fin)
         return len(history)
 
     # -- the chunked driver -------------------------------------------------
     def _chunk_inputs(self, iters, stream, n: int,
                       envelope: Optional[tuple] = None):
-        """Host-side draws of one member's next n rounds: (batch indices
-        (n, C, V, B), participation mask (n, C) float32 or None, and the
-        host dict of the float64 clock twin for the records, or None
-        without a scenario). With `envelope=(V_env, B_env)` (a Study
-        group) the indices are zero-padded to (n, C, V_env, B_env): no
-        extra draw, so the iterators and the stream advance exactly as in
-        a run of this simulator alone."""
+        """Host-side draws of one member's next n rounds: (the data — batch
+        indices (n, C, V, B) on the device-resident path, else the host
+        batches, leaves (n, C, V, B, ...) —, participation mask (n, C)
+        float32 or None, and the host dict of the float64 clock twin for
+        the records, or None without a scenario). With `envelope=(V_env,
+        B_env)` (a Study group) the draws are zero-padded to (n, C, V_env,
+        B_env, ...): no extra draw, so the iterators and the stream
+        advance exactly as in a run of this simulator alone."""
         V, b = self.fed.local_rounds, self.fed.batch_size
-        idx = stack_chunk_indices(iters, n, V)
+        xs = (stack_chunk_indices(iters, n, V) if self._data_dev is not None
+              else stack_chunk_batches(iters, n, V))
         if envelope is not None and tuple(envelope) != (V, b):
-            padded = np.zeros(idx.shape[:2] + tuple(envelope), idx.dtype)
-            padded[:, :, :V, :b] = idx
-            idx = padded
+            def pad(a):
+                out = np.zeros(a.shape[:2] + tuple(envelope) + a.shape[4:],
+                               a.dtype)
+                out[:, :, :V, :b] = a
+                return out
+
+            xs = tree_map(pad, xs)
         if stream is None:
-            return idx, None, None
+            return xs, None, None
         chunk = stream.draw_chunk(n)
         mask, t_cm = self._chunk_uplink(chunk)
         T_cm, T_cp = delay.chunk_round_times(self._t_cp_clients, t_cm,
@@ -472,7 +620,7 @@ class Simulator:
                 "n_participants": mask.sum(axis=1)}
         if self._faults is not None:
             host["attempts"] = chunk.attempts.sum(axis=1)
-        return idx, mask.astype(np.float32), host
+        return xs, mask.astype(np.float32), host
 
     def _chunk_records(self, ys, host, n: int, r0: int, t0: float,
                        ) -> List[RoundRecord]:
@@ -509,20 +657,16 @@ class Simulator:
                 n_participants=n_part, rejected=rej))
         return records
 
-    def _generator(self, state: SimState) -> torch.Generator:
-        gen = torch.Generator(device=self.device)
-        gen.set_state(state.rng)
-        return gen
-
     def _rewind(self, mat, pre: tuple, t: int) -> None:
         """Reposition a member's host streams as if only the first t
         rounds of the chunk just drawn had been consumed: restore the
         pre-chunk snapshots and replay t rounds of draws."""
         iters, stream = mat
         data, stream_state = pre
-        for it, st in zip(iters, data):
-            it.set_state(st)
-        stack_chunk_indices(iters, t, self.fed.local_rounds)
+        if data is not None:
+            self._restore_iters(iters, data)
+            (stack_chunk_indices if self._data_dev is not None
+             else stack_chunk_batches)(iters, t, self.fed.local_rounds)
         if stream is not None:
             stream.set_state(stream_state)
             stream.draw_chunk(t)
@@ -574,6 +718,7 @@ class Simulator:
         chunk_fn = self._chunk_fn if chunk_fn is None else chunk_fn
         envelope = None if env is None else (env["v_mask"].shape[1],
                                              env["sample_mask"].shape[1])
+        states = [sim._placed(st) for sim, st in zip(sims, states)]
         mats = [sim._materialize(st) for sim, st in zip(sims, states)]
         gens = [sim._generator(st) for sim, st in zip(sims, states)]
         params = tree_map(lambda *xs: _cat_members(xs),
@@ -593,20 +738,25 @@ class Simulator:
         done = 0
         while done < max_rounds:
             n = min(R, max_rounds - done)
-            pre = [(tuple(it.state() for it in mats[s][0]),
+            pre = [(sims[s]._snapshot_iters(mats[s][0]),
                     None if mats[s][1] is None else mats[s][1].state())
                    if max_sim_time else None for s in active]
             drawn = [sims[s]._chunk_inputs(*mats[s], n, envelope)
                      for s in active]
-            idx = np.concatenate([d[0] for d in drawn], axis=1)
-            idx = torch.from_numpy(idx.astype(np.int64)).to(self.device)
+            xs = tree_map(lambda *a: np.concatenate(a, axis=1),
+                          *[d[0] for d in drawn])
+            if self._data_dev is not None:
+                data, idx = self._data_dev, _upload(xs, self.device)
+            else:
+                data, idx = tree_map(lambda a: _upload(a, self.device),
+                                     xs), None
             mask = None
             if self.scenario is not None:
                 mask = torch.from_numpy(np.concatenate(
                     [d[1] for d in drawn], axis=1)).to(self.device)
             params, opt_state, ys = chunk_fn(
                 params, opt_state, [gens[s] for s in active], weights,
-                self._data_dev, idx, mask, env)
+                data, idx, mask, env)
             ys = {k: v.cpu().numpy() for k, v in ys.items()}
             stopped = set()
             for i, s in enumerate(active):
@@ -669,9 +819,251 @@ class Simulator:
                for s, st in enumerate(states)]
         return out, histories
 
+    # -- per-round execution ('batched', 'loop'; run_round on all three) ---
+    def run_round(self, state: SimState, real=None, t_cm_clients=None):
+        """One communication round: (state', metrics dict). `real` is the
+        scenario's realization of the round (drawn from the state's
+        stream when omitted); giving one to a scenario-less simulator
+        raises. `t_cm_clients`, the reference's per-client uplink times
+        for its in-graph clock, is checked and not used: the port's round
+        has no in-graph clock (the records take it from the host model,
+        core/delay.py). 'scan' shares the batched round here. As in the
+        reference, the state's clock does not advance (run() keeps it).
+
+        metrics: 'train_loss' (a device scalar on the stacked backends, a
+        float on 'loop'), and under a scenario 'n_participants', on the
+        fault path also 'finite' and, with a quorum, 'rejected'."""
+        if real is not None and self.scenario is None:
+            raise ValueError(
+                "run_round(real=...) was given a scenario realization but "
+                "this simulation has no scenario — the mask/channel inputs "
+                "would be silently ignored. Construct the Simulator with "
+                "scenario=... or drop the argument.")
+        if t_cm_clients is not None and self.scenario is None:
+            raise ValueError(
+                "run_round(t_cm_clients=...) was given uplink times but "
+                "this simulation has no scenario — they would be silently "
+                "ignored. Drop the argument.")
+        M = self.fed.n_devices
+        for what, arr in (("real.mask", None if real is None else real.mask),
+                          ("t_cm_clients", t_cm_clients)):
+            if arr is not None and np.shape(arr) != (M,):
+                raise ValueError(
+                    f"run_round: {what} has shape {np.shape(arr)}, and "
+                    f"this simulation has M={M} clients")
+        state = self._placed(state)
+        mat = self._materialize(state)
+        iters, stream = mat
+        gen = self._generator(state)
+        if self.scenario is not None and real is None:
+            real = stream.next_round()
+        if self._faults is not None and real is not None:
+            real = dataclasses.replace(real, mask=self._chunk_uplink(real)[0])
+        params_C, opt_C, metrics = self._round(
+            state.params_C, state.opt_C, gen, iters, real)
+        return self._state_at(state, params_C, opt_C, gen, mat,
+                              state.round + 1, state.sim_time), metrics
+
+    def _round(self, params_C, opt_C, gen, iters, real):
+        if self.backend == "loop":
+            return self._round_loop(params_C, opt_C, gen, iters, real)
+        return self._round_batched(params_C, opt_C, gen, iters, real)
+
+    def _round_batched(self, params_C, opt_C, gen, iters, real):
+        """The stacked round (mesh_rounds.build_fleet_round, the chunk
+        path's step) on one upload of the round's host batches."""
+        batches = tree_map(lambda x: _upload(x, self.device),
+                           stack_client_batches(iters, self.fed.local_rounds))
+        mask = (None if real is None else torch.from_numpy(
+            np.asarray(real.mask, np.float32)).to(self.device))
+        weights = self._weights if real is None else self._sizes
+        params_C, opt_C, ys = self._round_fn(params_C, opt_C, [gen], weights,
+                                             batches, mask)
+        out = {"train_loss": ys["loss"][0]}  # a device scalar
+        if real is not None:
+            if self._faults is None:
+                out["n_participants"] = real.n_participants
+            else:
+                # The guard decides on the device: the post-guard count,
+                # synced at the next eval boundary with the loss.
+                out.update({k: ys[k][0] for k in
+                            ("n_participants", "finite", "rejected")
+                            if k in ys})
+        return params_C, opt_C, out
+
+    def _round_loop(self, params, opt_states, gen, iters, real):
+        """The reference's per-client host loop (simulation.py:1408): each
+        participating client's V steps alone, the guard's float32 norm
+        and clip, its own quantize launch, then server.aggregate_updates.
+        Every client's batches are drawn every round, participating or
+        not, as stack_client_batches draws them; the round's noise is the
+        batched round's one draw for all M clients, row m for client m."""
+        V, M = self.fed.local_rounds, len(iters)
+        u = None
+        if self.fed.compress_updates:
+            u = self.noise(gen, (M, self._rows, compression.ROW))
+        mask = (np.ones(M, bool) if real is None
+                else np.asarray(real.mask, bool))
+        opt_states = list(opt_states)
+        # The quorum gate's reference: a rejected round restores every
+        # client's pre-round optimizer state.
+        pre_opts = list(opt_states) if self._quorum is not None else None
+        deltas, sizes, losses = [], [], []
+        for m, it in enumerate(iters):
+            raw = [it.next_batch() for _ in range(V)]
+            if not mask[m]:
+                continue
+            batches = tree_map(lambda x: _upload(x, self.device),
+                               stack_batches(raw))
+            prev_opt = opt_states[m]
+            delta, opt_states[m], loss_v = client_round(
+                self.local_update, params, opt_states[m], batches)
+            loss_m = float(mesh_rounds.fold_mean(list(loss_v)))
+            if self._guard is not None:
+                max_norm, reject = self._guard
+                sq = torch.zeros((), dtype=torch.float32, device=self.device)
+                for d in leaves(delta):
+                    sq = sq + torch.sum(d.to(torch.float32) ** 2)
+                norm = float(torch.sqrt(sq))
+                finite = bool(np.isfinite(norm) and np.isfinite(loss_m))
+                if reject and not finite:
+                    # Rejected = dropped this round: its pre-round
+                    # optimizer state back, no delta, not a participant.
+                    opt_states[m] = prev_opt
+                    continue
+                if np.isfinite(max_norm) and finite:
+                    scale = torch.tensor(min(1.0, max_norm / max(norm, 1e-12)),
+                                         dtype=torch.float32,
+                                         device=self.device)
+                    # The batched clip exactly: the clipped params o + d*s,
+                    # and the delta taken again from them.
+                    delta = tree_map(
+                        lambda o, d: (o.to(torch.float32)
+                                      + d.to(torch.float32) * scale)
+                        - o.to(torch.float32), params, delta)
+            if u is not None:
+                delta = compression.decompress_update(
+                    compression.compress_update(delta, u[m]))
+            deltas.append(delta)
+            sizes.append(self.data_sizes[m])
+            losses.append(loss_m)
+        rejected = None
+        if self._quorum is not None and real is not None:
+            n_q = len(deltas) if self._guard is not None else int(mask.sum())
+            rejected = n_q < self._quorum
+        if rejected and self._quorum_policy == "reject":
+            # Below quorum the round writes nothing (the clock still
+            # advances; run() adds the re-dispatch cost).
+            opt_states = pre_opts
+        elif deltas:  # a round without participants keeps the params
+            params = aggregate_updates(params, deltas, sizes)
+        out = {"train_loss": float(np.mean(losses)) if losses
+               else float("nan")}
+        if real is not None:
+            out["n_participants"] = (len(deltas) if self._guard is not None
+                                     else int(mask.sum()))
+            if rejected is not None:
+                out["rejected"] = rejected
+        return params, tuple(opt_states), out
+
+    @staticmethod
+    def _sync_history(history: List[RoundRecord]) -> None:
+        """The host-sync boundary: losses (and, on the fault path,
+        participant counts) still on the device become host numbers."""
+        for rec in history:
+            if not isinstance(rec.train_loss, float):
+                rec.train_loss = float(rec.train_loss)
+            if rec.n_participants is not None and not isinstance(
+                    rec.n_participants, int):
+                rec.n_participants = int(rec.n_participants)
+
+    def _run_rounds(self, state, max_rounds, target_acc, eval_every,
+                    max_sim_time):
+        """run() on 'batched' and 'loop': the reference's per-round loop
+        (simulation.py:2118-2225), one round step a round. The batched
+        step's losses (and on the fault path its participant counts,
+        finite flags and quorum flags: the quorum flag is read every round
+        for the clock) stay on the device between eval_every boundaries."""
+        state = self._placed(state)
+        mat = self._materialize(state)
+        iters, stream = mat
+        gen = self._generator(state)
+        guard_on = (self._faults is not None
+                    and self._faults.divergence_guard)
+        snap, checked, finites = state, 0, []
+        params_C, opt_C = state.params_C, state.opt_C
+        history: List[RoundRecord] = []
+        sim_time, r0 = state.sim_time, state.round
+        T_cm, T_cp = self.round_times()
+        V = self.fed.local_rounds
+        update_bits = self._update_bits()
+        for k in range(1, max_rounds + 1):
+            real = n_attempts = None
+            if stream is not None:
+                # The round's realization on the host, its Eq. 8 clock as
+                # the straggler max over the clients the server waits for,
+                # and the same realization to the round step.
+                real = stream.next_round()
+                mask, t_cm_clients = self._chunk_uplink(real)
+                real = dataclasses.replace(real, mask=mask)
+                if self._faults is not None:
+                    n_attempts = int(real.attempts.sum())
+                T_cm, T_cp = delay.masked_round_times(
+                    self._t_cp_clients, t_cm_clients, real.clock_mask)
+            params_C, opt_C, metrics = self._round(params_C, opt_C, gen,
+                                                   iters, real)
+            sim_time += delay.round_time(T_cm, T_cp, V,
+                                         deadline=self._deadline)
+            rej = metrics.get("rejected")
+            if rej is not None:
+                rej = bool(rej)
+                if rej and self._quorum_policy == "reject":
+                    sim_time += self._faults.redispatch_cost
+            n_part = metrics.get("n_participants")
+            if n_attempts is not None:
+                bits = float(n_attempts * update_bits)
+            else:
+                bits = float((self.fed.n_devices if n_part is None
+                              else n_part) * update_bits)
+            rec = RoundRecord(
+                round=r0 + k, sim_time=sim_time, T_cm=T_cm, T_cp=T_cp,
+                train_loss=metrics["train_loss"], uplink_bits=bits,
+                n_participants=n_part, rejected=rej)
+            history.append(rec)
+            if guard_on:
+                finites.append(metrics.get("finite"))
+            at_boundary = k % eval_every == 0 or k == max_rounds
+            if self.eval_fn is not None and at_boundary:
+                ev = self.eval_fn(self._params_from(params_C))
+                rec.test_acc = float(ev.get("acc", np.nan))
+                rec.test_loss = float(ev.get("loss", np.nan))
+            if at_boundary:
+                self._sync_history(history)
+                if guard_on:
+                    checked = self._raise_if_diverged(history, checked, snap,
+                                                      finites)
+                    snap = self._state_at(state, params_C, opt_C, gen, mat,
+                                          r0 + k, sim_time)
+            if (target_acc and rec.test_acc is not None
+                    and rec.test_acc >= target_acc):
+                break
+            if max_sim_time and sim_time >= max_sim_time:
+                break
+        self._sync_history(history)
+        if guard_on:
+            self._raise_if_diverged(history, checked, snap, finites)
+        out = self._state_at(state, params_C, opt_C, gen, mat,
+                             r0 + len(history), sim_time)
+        return out, SimResult(history=history,
+                              params=self._params_from(params_C),
+                              label=self.label, fed=self.fed)
+
     def run_chunk(self, state: SimState, rounds: int):
         """Run `rounds` rounds as one chunk, without evaluation:
-        (state', [RoundRecord])."""
+        (state', [RoundRecord]) ('scan' backend)."""
+        if self.backend != "scan":
+            raise ValueError(
+                f"run_chunk requires backend='scan', not {self.backend!r}")
         _validate_run_args(rounds, 1)
         states, histories = self._drive([state], rounds, rounds, None, None,
                                         None)
@@ -686,16 +1078,24 @@ class Simulator:
         max_sim_time: Optional[float] = None,
         recovery: Optional[RecoveryPolicy] = None,
     ):
-        """Run up to `max_rounds` MORE rounds from `state` in chunks of
-        `eval_every` rounds: (state', SimResult). Round numbers and the
-        Eq. 8 clock continue from the state's cursors. With an eval_fn,
-        test accuracy is taken at each chunk's end, and a run with
-        target_acc stops at the first chunk that reaches it. With
-        max_sim_time the history stops at the first round whose clock
-        reaches it, and the returned state's data iterators are rewound
-        to that round (so a resumed run draws the next round's batches)
-        while its params and noise generator are those at the end of the
-        chunk, as in the reference's scan backend.
+        """Run up to `max_rounds` MORE rounds from `state`: (state',
+        SimResult). Round numbers and the Eq. 8 clock continue from the
+        state's cursors, so a run resumed from a checkpoint (save_state /
+        load_state) gives the history an uninterrupted run would; params
+        and optimizer state held on the CPU (a loaded checkpoint's) move
+        to this simulator's device first.
+
+        'scan' runs chunks of `eval_every` rounds. With an eval_fn, test
+        accuracy is taken at each chunk's end, and a run with target_acc
+        stops at the first chunk that reaches it. With max_sim_time the
+        history stops at the first round whose clock reaches it, and the
+        returned state's data iterators are rewound to that round (so a
+        resumed run draws the next round's batches) while its params and
+        noise generator are those at the end of the chunk, as in the
+        reference's scan backend. 'batched' and 'loop' run round by round
+        (`_run_rounds`): eval at each multiple of eval_every, and both
+        stops fall after the round that reaches them, with the state of
+        that round.
 
         With the fault layer's divergence_guard (on by default in an
         active FaultModel), a non-finite train loss on a round with
@@ -708,6 +1108,9 @@ class Simulator:
         if recovery is not None:
             return self._run_recovering(state, recovery, max_rounds,
                                         target_acc, eval_every, max_sim_time)
+        if self.backend != "scan":
+            return self._run_rounds(state, max_rounds, target_acc,
+                                    eval_every, max_sim_time)
         evaluate = None
         if self.eval_fn is not None:
             evaluate = lambda g: [  # noqa: E731
@@ -835,10 +1238,20 @@ class Simulator:
         test_acc is exact on equal params
         (eval_batch_fn agrees with eval_fn).
         """
+        if self.backend != "scan":
+            raise ValueError(
+                f"run_fleet requires backend='scan', not {self.backend!r}")
         if target_acc and self.eval_batch_fn is None:
             raise ValueError(
                 "run_fleet(target_acc=...) needs an eval_fn/eval_batch_fn "
                 "(build the spec with with_eval=True)")
+        if not callable(self._data_src):
+            raise ValueError(
+                "run_fleet needs a per-seed data factory: this Simulator "
+                "was built on a list of live iterators, which every member "
+                "would share (and advance past each other). Construct it "
+                "with data=lambda seed: [...fresh iterators...] or through "
+                "ExperimentSpec.build().")
         _validate_run_args(max_rounds, eval_every)
         if states is None:
             if seeds is None:
@@ -888,6 +1301,201 @@ def _atomic_pickle(path: str, payload: Any) -> None:
         except OSError:
             pass
         raise
+
+
+def _upload(x, device) -> torch.Tensor:
+    """A host array as a tensor on `device`: floating point as float32,
+    integers (labels, batch indices) as int64."""
+    t = torch.as_tensor(np.asarray(x))
+    return t.to(device, torch.float32 if t.is_floating_point()
+                else torch.int64)
+
+
+def _rng_kind(rng: torch.Tensor) -> str:
+    """'CPU' or 'CUDA': the kind of generator a SimState.rng came from (the
+    two kinds' states differ in size)."""
+    return ("CPU" if rng.numel() == torch.Generator().get_state().numel()
+            else "CUDA")
+
+
+# -- checkpoints ----------------------------------------------------------------
+
+# Checkpoint schema version: bump when the on-disk payload layout changes.
+_STATE_VERSION = 1
+
+
+def _state_signature(state: SimState) -> tuple:
+    """Shape signature of a state's (params, opt, rng) trio: the trio's
+    structure and every leaf's shape and dtype. Metadata only, so it is
+    cheap at save and at load, and it catches a checkpoint fed to the
+    wrong spec (or a corrupt payload) before the first round does."""
+    trio = (state.params_C, state.opt_C, state.rng)
+    return (structure(trio), tuple((tuple(x.shape), str(x.dtype))
+                                   for x in leaves(trio)))
+
+
+def _host_copy(tree):
+    """Every tensor of `tree` as its own contiguous copy on the CPU (never
+    a view, which would pickle its whole base)."""
+    return tree_map(lambda x: x.detach().to("cpu").clone(
+        memory_format=torch.contiguous_format), tree)
+
+
+def save_state(path: str, state: SimState) -> None:
+    """Checkpoint a SimState: its tensors copied to the CPU, and the whole
+    value (host stream and iterator snapshots included) pickled under a
+    versioned envelope with the state's shape signature, written
+    crash-safely (`_atomic_pickle`). `load_state` + `Simulator.run`
+    continues the run bit for bit, on the kind of device the state was
+    made on (its noise generator's state is that device's)."""
+    host = dataclasses.replace(state, params_C=_host_copy(state.params_C),
+                               opt_C=_host_copy(state.opt_C),
+                               rng=_host_copy(state.rng))
+    _atomic_pickle(path, {"__repro_simstate__": _STATE_VERSION,
+                          "signature": _state_signature(host),
+                          "state": host})
+
+
+def load_state(path: str, like: Optional[SimState] = None) -> SimState:
+    """Restore a `save_state` checkpoint, its tensors on the CPU (`run`
+    moves them to its device).
+
+    The payload is checked first — schema version, the type it holds, and
+    the stored shape signature against its leaves — so corruption or a
+    version skew fails here with a ValueError. `like=` (any SimState of
+    the target simulator, e.g. `sim.init()`) also checks that the
+    checkpoint was saved from a simulator of the same shapes, and on the
+    same kind of device. A bare pickled SimState (the reference's legacy
+    form) loads too."""
+    try:
+        with open(path, "rb") as f:
+            payload = pickle.load(f)
+    except (pickle.UnpicklingError, EOFError, AttributeError) as e:
+        raise ValueError(
+            f"{path!r} is not a readable checkpoint "
+            f"(corrupt or truncated pickle): {e}") from e
+    if isinstance(payload, SimState):  # legacy: a bare SimState pickle
+        state = payload
+    elif isinstance(payload, dict) and "__repro_simstate__" in payload:
+        version = payload["__repro_simstate__"]
+        if version != _STATE_VERSION:
+            raise ValueError(
+                f"{path!r} holds checkpoint schema v{version}, this build "
+                f"reads v{_STATE_VERSION} — re-save the state with this "
+                "version (or load it with the matching build)")
+        state = payload.get("state")
+        if not isinstance(state, SimState):
+            raise ValueError(f"{path!r} does not hold a SimState")
+        sig = payload.get("signature")
+        if sig is not None and sig != _state_signature(state):
+            raise ValueError(
+                f"{path!r} is corrupt: its stored shape signature does not "
+                "match the payload's leaves")
+    else:
+        raise ValueError(f"{path!r} does not hold a SimState")
+    if like is not None:
+        if _rng_kind(like.rng) != _rng_kind(state.rng):
+            raise ValueError(
+                f"checkpoint {path!r} holds a {_rng_kind(state.rng)} "
+                f"generator's state and the target simulator runs a "
+                f"{_rng_kind(like.rng)} generator: a state saved on the "
+                "card resumes on the card, and one saved on the CPU on the "
+                "CPU")
+        if _state_signature(like) != _state_signature(state):
+            raise ValueError(
+                f"checkpoint {path!r} was saved from a different spec: its "
+                "(params, opt, rng) shape signature does not match the "
+                "target simulator's states")
+    return state
+
+
+# -- the deprecated stateful facade ----------------------------------------------
+
+_FLSIM_WARNED = False
+
+
+class FLSimulation:
+    """Deprecated: the reference's old mutable simulator interface, a thin
+    shim holding a (Simulator, SimState) pair. Build a `Simulator` (or an
+    experiment.ExperimentSpec) and thread `SimState` through `run()`
+    instead: that is what gives run_fleet, checkpoints and multi-seed
+    sweeps. Emits one `DeprecationWarning` a process."""
+
+    def __init__(
+        self,
+        loss_fn: Callable,
+        init_params: Any,
+        client_iterators: List,
+        data_sizes: np.ndarray,
+        fed: FedConfig,
+        opt: Optimizer,
+        pop: delay.DevicePopulation,
+        wireless: Optional[WirelessConfig] = None,
+        eval_fn: Optional[Callable] = None,
+        label: str = "defl",
+        backend: str = "scan",
+        scenario: Any = None,
+        device=None,
+    ):
+        global _FLSIM_WARNED
+        if not _FLSIM_WARNED:
+            warnings.warn(
+                "FLSimulation is deprecated: build a "
+                "repro_torch.federated.simulation.Simulator (or an "
+                "repro_torch.federated.experiment.ExperimentSpec) and "
+                "thread SimState through run()/run_fleet() instead.",
+                DeprecationWarning, stacklevel=2)
+            _FLSIM_WARNED = True
+        self.sim = Simulator(
+            loss_fn, init_params, client_iterators, data_sizes, fed, opt,
+            pop, wireless=wireless, eval_fn=eval_fn, label=label,
+            device=device, scenario=scenario, backend=backend,
+            eval_batch_fn=None if eval_fn is None else _members_eval(eval_fn))
+        self.state = self.sim.init(fed.seed)
+
+    def __getattr__(self, name):
+        # The simulator's views (fed, pop, round_times, _update_bits, ...);
+        # __getattr__ fires only for names the shim itself lacks.
+        if name in ("sim", "state"):
+            raise AttributeError(name)
+        return getattr(self.sim, name)
+
+    @property
+    def eval_fn(self):
+        return self.sim.eval_fn
+
+    @eval_fn.setter
+    def eval_fn(self, fn):
+        self.sim.eval_fn = fn
+        self.sim.eval_batch_fn = None if fn is None else _members_eval(fn)
+
+    @property
+    def params(self):
+        return self.sim.params(self.state)
+
+    def run_round(self, real=None, t_cm_clients=None) -> Dict:
+        self.state, metrics = self.sim.run_round(self.state, real,
+                                                 t_cm_clients)
+        return metrics
+
+    def run(self, max_rounds: int = 200, target_acc: Optional[float] = None,
+            eval_every: int = 1, max_sim_time: Optional[float] = None,
+            ) -> SimResult:
+        self.state, res = self.sim.run(
+            self.state, max_rounds=max_rounds, target_acc=target_acc,
+            eval_every=eval_every, max_sim_time=max_sim_time)
+        return res
+
+
+def _members_eval(eval_fn: Callable) -> Callable:
+    """An eval_batch_fn from an eval_fn: one call a member of the stacked
+    (S, ...) models, each value stacked to (S,)."""
+    def eval_batch_fn(params_S):
+        evs = [eval_fn(tree_map(lambda x, i=i: x[i], params_S))
+               for i in range(leaves(params_S)[0].shape[0])]
+        return {k: np.asarray([ev[k] for ev in evs]) for k in evs[0]}
+
+    return eval_batch_fn
 
 
 def _cat_members(xs: Sequence[torch.Tensor]) -> torch.Tensor:

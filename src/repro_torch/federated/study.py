@@ -80,15 +80,15 @@ PARAM_ATOL = 5e-4
 def _group_signature(spec: ExperimentSpec, fed) -> tuple:
     """Everything that shapes a group's chunk function or its shared
     inputs (model, data, partition and population draw, scenario, the
-    effective FaultModel, lr, compression) EXCEPT the per-arm (b, V)
+    effective FaultModel, backend, lr, compression) EXCEPT the per-arm (b, V)
     plan, which the envelope absorbs, and the plan constants (epsilon,
     nu, c) that only exist to derive it. The guard and quorum are built
     into the group's chunk, and the fault inputs (deadlines, attempts)
     are per-arm host values that must agree across a group's members."""
     return (spec.model, spec.dataset, spec.n_train, spec.n_test, spec.alpha,
             spec.seed, spec.scenario, spec.effective_faults(),
-            spec.heterogeneity, spec.compute, spec.wireless, spec.with_eval,
-            fed.n_devices, fed.lr, fed.compress_updates)
+            spec.heterogeneity, spec.compute, spec.wireless, spec.backend,
+            spec.with_eval, fed.n_devices, fed.lr, fed.compress_updates)
 
 
 @dataclass
@@ -435,6 +435,10 @@ class Study:
             if not isinstance(spec, ExperimentSpec):
                 raise TypeError(f"arm {label!r}: expected ExperimentSpec, "
                                 f"got {type(spec).__name__}")
+            if spec.backend != "scan":
+                raise ValueError(
+                    f"arm {label!r}: studies run on backend='scan' (got "
+                    f"{spec.backend!r})")
 
     def replace(self, **kw) -> "Study":
         return dataclasses.replace(self, **kw)

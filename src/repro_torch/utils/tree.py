@@ -46,3 +46,15 @@ def tree_bytes(tree: Any) -> int:
     """Total bytes across all leaves (anything with .shape and .dtype
     whose dtype has an itemsize)."""
     return sum(int(np.prod(x.shape)) * x.dtype.itemsize for x in leaves(tree))
+
+
+def structure(tree: Any) -> str:
+    """The tree's shape without its leaves, as a string: dict keys (sorted),
+    tuple and list lengths, and `*` for each leaf."""
+    if isinstance(tree, dict):
+        return "{" + ", ".join(f"{k!r}: {structure(tree[k])}"
+                               for k in sorted(tree)) + "}"
+    if isinstance(tree, (tuple, list)):
+        inner = ", ".join(structure(t) for t in tree)
+        return f"({inner})" if isinstance(tree, tuple) else f"[{inner}]"
+    return "*"

@@ -53,7 +53,8 @@ def test_importing_every_module_leaves_jax_and_repro_out():
     assert len(MODULES) > 15
     # The numpy copies of the reference's modules are walked too.
     assert {"repro_torch.federated.faults",
-            "repro_torch.federated.scenarios"} <= set(MODULES)
+            "repro_torch.federated.scenarios",
+            "repro_torch.federated.server"} <= set(MODULES)
 
 
 def test_no_source_imports_jax_or_repro():
@@ -77,6 +78,8 @@ def test_entry_points_default_to_cuda_and_never_fall_back():
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"
         assert spec.build().device.type == "cuda"
+        for backend in ("batched", "loop"):
+            assert spec.replace(backend=backend).build().device.type == "cuda"
         sims = study.Study(arms=[("A", spec)]).build_sims()
         assert sims["A"].device.type == "cuda"
         params = tfm.init_params(cfg, torch.Generator())
@@ -92,6 +95,12 @@ def test_entry_points_default_to_cuda_and_never_fall_back():
         study.Study(arms=[("A", spec)], max_rounds=1).run()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         simulation.Simulator(None, {}, lambda s: [], [], spec.fed, None, None)
+    for backend in ("batched", "loop"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            spec.replace(backend=backend).build()
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            simulation.Simulator(None, {}, lambda s: [], [], spec.fed, None,
+                                 None, backend=backend)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tfm.init_params(cfg, torch.Generator())
     with pytest.raises(RuntimeError, match="device='cpu'"):

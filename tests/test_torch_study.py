@@ -478,6 +478,21 @@ def test_study_validation():
     assert st.replace(max_rounds=7).max_rounds == 7
 
 
+def test_backend_groups_and_non_scan_arms_raise():
+    """`backend` is part of the group signature, as in the reference, and
+    a study refuses an arm off the chunked path, as the reference does
+    for every synchronous backend but 'scan'."""
+    t_spec, j_spec = _tiny(TSpec, TFed, 4, 1), _tiny(JSpec, JFed, 4, 1)
+    for spec, study in ((t_spec, t_study), (j_spec, j_study)):
+        fed = spec.resolve_fed()
+        assert (study._group_signature(spec, fed)
+                != study._group_signature(spec.replace(backend="batched"),
+                                          fed))
+        for backend in ("batched", "loop"):
+            with pytest.raises(ValueError, match="backend='scan'"):
+                study.Study(arms=[("A", spec.replace(backend=backend))])
+
+
 def test_chunk_inputs_pad_without_extra_draws():
     """The envelope zero-pads a member's native draws: the same indices in
     the valid corner, zeros elsewhere, and the iterators and the stream
