@@ -19,8 +19,9 @@ Phases (each prints its own lines; any failure exits non-zero):
      of ops.HEAD_DIMS is missing;
   3. kernels: each kernel against its plain PyTorch version on the card,
      on several cases and at its main paths' shapes (quantize: exact
-     equality, timed at the FL shapes of phases 4, 10, 11 and 18 (a loop
-     client's 1,628 rows), also on the device alone (torch.profiler); flash
+     equality, timed at the FL shapes of phases 4, 10, 11, 18 (a loop
+     client's 1,628 rows) and 19 (a sampled round's 50 x 1,628), also on
+     the device alone (torch.profiler); flash
      attention: atol 2e-6 in float32 (the CUDA-core kernel), 2e-2 in bf16
      (the wgmma + TMA kernel), at head_dims 32, 64, 80, 128 and 256, timed
      at the prefill shapes of qwen2-0.5b, gemma-7b and zamba2-2.7b's shared
@@ -28,8 +29,9 @@ Phases (each prints its own lines; any failure exits non-zero):
      selective scan: 3e-5 of max(1, max |plain|); fold matmul: 1e-4 of
      max(1, max |plain|) against torch.matmul at the Fig. 2 MNIST Study
      group's product shapes and at compressed `mnist_paper`'s own (the
-     `paper_*` cases, and four of them at batch 1 as a loop client runs
-     them, the `loop_*` cases), the tiles and panel routes equal to the row route
+     `paper_*` cases, four of them at batch 1 as a loop client runs them,
+     the `loop_*` cases, and three at a sampled round's 50 lanes, the
+     `sampled_*` cases), the tiles and panel routes equal to the row route
      (the oracle) as int32, and its rows unmoved bit for bit by more rows
      and by zeros appended to K), then its time per launch beside the plain
      version's time, the card's bound for the same work and, where one
@@ -153,12 +155,35 @@ Phases (each prints its own lines; any failure exits non-zero):
      rounds each, no eval) beside phase 4's `scan`, and one profiled `loop`
      round (busy share, launches, the fold matmul's ms); none of (d) a
      gate.
+ 19. sampled participation, compressed `mnist_paper` at full width with
+     its own plan, K-client cohorts drawn each round from M clients: (a)
+     K = M = 10 on `scan` and `batched`, 3 rounds: one quantize launch a
+     round, the records (every field but the participant count) equal to
+     phase 4's first 3 and the params to a dense run's, bit for bit; (b)
+     K = 50 of M = 10,000 (virtual data shards: M > n_train), 3 rounds:
+     `batched` equal to `scan` bit for bit, one quantize launch a round
+     over 50 x 1,628 rows, 50 lanes in every leaf of params_C, and the
+     state's bytes those of a dense M = 50 build (the O(K) gate); (c)
+     `CohortSpec(K=50, spare=10)` under `unreliable_edge`: 3 rounds,
+     `save_state`, `load_state` into a fresh build and 3 more, bit for bit
+     against 6 rounds alone, the kept cohorts equal to a host
+     recomputation of the selection and the clients whose data advanced
+     exactly the kept ones; (d) `run_fleet` of 4 seeds of (b): one launch
+     a round over 4 x 50 x 1,628 rows, each member its run alone bit for
+     bit; (e) compressed `mnist_sampled` 4 rounds on the card and on the
+     CPU from the same model and noise: cohorts, clock, bits and
+     participants exact, losses and params within phase 5's tolerances;
+     (f) steady-state s/round of (b) beside a dense M = 50 run (printed
+     against the reference's CPU gate of 0.9x, not a gate), the host's
+     share of a round (cohort draw, the M-wide realization and uplink,
+     the index stack) and one profiled round (busy share, the fold
+     matmul's ms a round, launches); none of (f) a gate.
 
-Phases 10, 11, 12, 18 and 17 run right after phase 5, in that order,
+Phases 10, 11, 12, 18, 19 and 17 run right after phase 5, in that order,
 phases 13-16 after phase 9; quantize's `launches` in the JSON line are
-those of phases 4, 10, 11, 12 (a, b, c's guarded run and d), 17 (b) and
-18, the fold matmul's those of the same FL paths and of the quickstart
-twin and 17 (a, c), flash attention's
+those of phases 4, 10, 11, 12 (a, b, c's guarded run and d), 17 (b), 18
+and 19, the fold matmul's those of the same FL paths and of the
+quickstart twin and 17 (a, c), flash attention's
 those of phases 6, 13 and 15 (24 + 28 + 9). The last lines are the
 kernels' JSON record, the card's name and power limit, and
 {"ok": true, "device": {...}}. The script exits non-zero
@@ -414,7 +439,8 @@ def phase_flash_sass():
 # -- quantize ----------------------------------------------------------------
 
 QUANTIZE_SHAPES = {"slice_16280x1024": 16280, "cifar_21100x1024": 21100,
-                   "fleet_65120x1024": 65120, "loop_1628x1024": 1628}
+                   "fleet_65120x1024": 65120, "loop_1628x1024": 1628,
+                   "sampled_81400x1024": 81400}
 
 
 def quantize_cases(dev):
@@ -436,7 +462,8 @@ def quantize_cases(dev):
     # The FL paths' shapes, one launch a round: mnist_paper's 10 clients x
     # 1,628 rows of 1024, cifar_paper's 10 x 2,110, and a fleet of 4
     # mnist_paper runs, 4 x 10 x 1,628; then one launch a participating
-    # client on the loop backend (phase 18): 1,628 rows.
+    # client on the loop backend (phase 18): 1,628 rows; and a sampled
+    # round's cohort of 50 lanes (phase 19): 50 x 1,628.
     for name, rows in QUANTIZE_SHAPES.items():
         cases[name] = torch.randn(rows, 1024, generator=g) * 1e-3
     return {k: v.to(dev) for k, v in cases.items()}
@@ -502,7 +529,9 @@ def phase_quantize_kernel(dev, card):
 # clients of fc1's 1.6M weights (weights broadcast over 6 members), and a
 # ragged case; then the main path's own: the 8 products of a compressed
 # `mnist_paper` local step (phase 4: 10 clients, b* = 16) with K >= 512,
-# and four of them at batch 1, a client of the loop backend (phase 18).
+# four of them at batch 1, a client of the loop backend (phase 18), and
+# three at a sampled round's 50 lanes (phase 19: M = 10,000, whose plan
+# gives b* = 32, so conv2 sees 32 x 196 positions).
 # layout: "nn" both row-major, "tn" A transposed, "nt" B transposed, "ones"
 # A a broadcast row of ones, "wbc" A one row a batch entry, broadcast.
 FOLD_CASES = {
@@ -527,6 +556,9 @@ FOLD_CASES = {
     "loop_conv2_wgrad": (1, 800, 3136, 64, "tn"),
     "loop_fc1_fwd": (1, 16, 3136, 512, "nn"),
     "loop_conv1_wgrad": (1, 25, 12544, 32, "tn"),
+    "sampled_conv2_fwd": (50, 6272, 800, 64, "nn"),
+    "sampled_conv2_wgrad": (50, 800, 6272, 64, "tn"),
+    "sampled_conv1_wgrad": (50, 25, 25088, 32, "tn"),
 }
 FOLD_TIMED = "conv2_wgrad"
 FOLD_RTOL = 1e-4
@@ -1711,6 +1743,348 @@ def phase_backends_cost(counters, card, paper):
     return launches
 
 
+# -- sampled participation (phase 19) --------------------------------------------
+
+# (b)-(d), (f): compressed mnist_paper over a population of SAMPLED_M
+# clients, a cohort of SAMPLED_K drawn each round (virtual data shards:
+# SAMPLED_M > n_train), and in (c) SAMPLED_SPARE spare candidates a round.
+SAMPLED_M, SAMPLED_K, SAMPLED_SPARE = 10_000, 50, 10
+# The record of a sampled run against a dense one: every field but the
+# participant count (None on a scenario-less dense run: all M).
+DENSE_FIELDS = ("round", "sim_time", "T_cm", "T_cp", "uplink_bits",
+                "rejected", "train_loss", "test_acc")
+# (f): timed chunks of 3 rounds, after one chunk of warm-up.
+SAMPLED_TIMED_CHUNKS = 4
+# The reference's CPU gate on sampled throughput against a dense run of K
+# clients (benchmarks/bench_round_step.py): printed against, not a gate.
+SAMPLED_REF_GATE = 0.9
+
+
+def sampled_spec(M, K, spare=0, **kw):
+    """Compressed mnist_paper with a population of M and cohorts of K."""
+    from repro_torch.federated.experiment import CohortSpec, PopulationSpec
+    return compressed_spec("mnist_paper").replace(
+        population=PopulationSpec(M=M, cohort=CohortSpec(K=K, spare=spare)),
+        **kw)
+
+
+def _quantize_rows(fn):
+    """fn() with the rows of every quantize call recorded: (its result,
+    [rows of each call])."""
+    from repro_torch.kernels.quantize import ops
+    real, rows = ops.quantize, []
+
+    def recording(x, u):
+        rows.append(int(x.shape[0]))
+        return real(x, u)
+
+    ops.quantize = recording
+    try:
+        return fn(), rows
+    finally:
+        ops.quantize = real
+
+
+def _state_bytes(state):
+    """Bytes of a SimState's device state: its params, optimizer state and
+    noise generator."""
+    from repro_torch.utils.tree import leaves
+    return sum(x.numel() * x.element_size()
+               for x in leaves((state.params_C, state.opt_C, state.rng)))
+
+
+def _on_card(sim, what):
+    if sim.device.type != "cuda":
+        raise SystemExit(f"{what} was built on {sim.device}")
+    return sim
+
+
+def phase_sampled_dense(counters, paper):
+    """19 (a): K = M = 10 sampled on scan and batched, 3 rounds: the
+    records (every field but the participant count) equal phase 4's first
+    3, and the params a dense run's of 3 rounds, bit for bit."""
+    dense = _on_card(compressed_spec("mnist_paper").build(), "dense")
+    _, dense_res = dense.run(dense.init(), max_rounds=3, eval_every=3)
+    want = [tuple(getattr(r, f) for f in DENSE_FIELDS)
+            for r in paper["history"][:3]]
+    M = dense.fed.n_devices
+    fl_launches = []
+    for backend in ("scan", "batched"):
+        spec = sampled_spec(M, M, backend=backend)
+        sim = _on_card(spec.build(), f"sampled {backend}")
+        (_, res), launches = _launched(counters, lambda: sim.run(
+            sim.init(), max_rounds=3, eval_every=3))
+        _check_quantize_rounds("sampled", launches, 3)
+        fl_launches.append(launches)
+        got = [tuple(getattr(r, f) for f in DENSE_FIELDS)
+               for r in res.history]
+        parts = [r.n_participants for r in res.history]
+        same = (got == want and parts == [M] * 3
+                and _params_same(res.params, dense_res.params))
+        print(f"[sampled] (a) K = M = {M}, {backend}: launches {launches}; "
+              f"records equal phase 4's first 3 (participants {parts}) and "
+              f"params a dense run's, bit for bit: {same}", flush=True)
+        if not same:
+            raise SystemExit(f"sampled K = M on {backend} differs from the "
+                             "dense run")
+    return fl_launches
+
+
+def phase_sampled_scale(counters, card):
+    """19 (b): K = 50 of M = 10,000 (virtual shards), 3 rounds on scan and
+    batched: bit for bit equal, one quantize launch a round over K x rows,
+    K lanes in every leaf of params_C, and the state's bytes those of a
+    dense M = K build (the O(K) gate)."""
+    import torch
+    from repro_torch.federated import compression
+    from repro_torch.federated.experiment import PopulationSpec
+    from repro_torch.utils.tree import leaves
+    runs, fl_launches = {}, []
+    for backend in ("scan", "batched"):
+        sim = _on_card(sampled_spec(SAMPLED_M, SAMPLED_K,
+                                    backend=backend).build(),
+                       f"sampled {backend}")
+        pool = sim._data_src(0)
+        if not (hasattr(pool, "client") and len(pool) == SAMPLED_M):
+            raise SystemExit("the M = 10,000 build did not take the pooled "
+                             "virtual-shard data path")
+        rows = compression.n_rows(sim.params(sim.init()))
+        t0 = time.perf_counter()
+        ((state, res), q_rows), launches = _launched(
+            counters, lambda: _quantize_rows(lambda: sim.run(
+                sim.init(), max_rounds=3, eval_every=3)))
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        fl_launches.append(launches)
+        lanes = {leaf.shape[0] for leaf in leaves(state.params_C)}
+        print(f"[sampled] (b) K = {SAMPLED_K} of M = {SAMPLED_M}, "
+              f"{backend}: 3 rounds in {elapsed:.4f} s (warm-up included), "
+              f"b={sim.fed.batch_size} V={sim.fed.local_rounds}, launches "
+              f"{launches}, quantize rows a launch {q_rows}, participants "
+              f"{[r.n_participants for r in res.history]}, lanes {lanes}, "
+              f"losses {[r.train_loss for r in res.history]}", flush=True)
+        _check_quantize_rounds("sampled", launches, 3)
+        if q_rows != [SAMPLED_K * rows] * 3 or lanes != {SAMPLED_K}:
+            raise SystemExit("a sampled round must quantize K x rows in one "
+                             "launch and hold K lanes")
+        if not all(math.isfinite(r.train_loss) for r in res.history):
+            raise SystemExit("non-finite train loss on the sampled path")
+        runs[backend] = (sim, state, res)
+    same = (_full_records(runs["scan"][2]) == _full_records(runs["batched"][2])
+            and _params_same(runs["scan"][2].params,
+                             runs["batched"][2].params))
+    dense = _on_card(compressed_spec("mnist_paper").replace(
+        population=PopulationSpec(M=SAMPLED_K)).build(), "dense M = K")
+    sampled_bytes = _state_bytes(runs["scan"][1])
+    dense_bytes = _state_bytes(dense.init())
+    print(f"[sampled] (b) scan vs batched: records and params bit for bit "
+          f"{same}; state bytes {sampled_bytes:,} sampled vs {dense_bytes:,} "
+          f"dense M = {SAMPLED_K} (a dense M = {SAMPLED_M} would hold "
+          f"{dense_bytes // SAMPLED_K * SAMPLED_M:,})", flush=True)
+    if not same:
+        raise SystemExit("sampled batched differs from sampled scan")
+    if sampled_bytes != dense_bytes:
+        raise SystemExit("the sampled state is not O(K)")
+    return fl_launches, runs["scan"], dense
+
+
+def _kept_cohorts(sim, cands, t_cm):
+    """The K kept of each round's candidates, recomputed on the host from
+    the definition: feasible before infeasible (finish V t_cp + t_cm past
+    the deadline), then the fastest, ties by client id; sorted."""
+    V, K = sim.fed.local_rounds, sim._cohort
+    deadline = math.inf if sim._deadline is None else sim._deadline
+    out = []
+    for r, row in enumerate(cands):
+        finish = [V * sim._t_cp_clients[c] + t_cm[r, c] for c in row]
+        keyed = sorted((bool(f > deadline), f, int(c))
+                       for f, c in zip(finish, row))
+        out.append(sorted(c for _, _, c in keyed[:K]))
+    return out
+
+
+def phase_sampled_spare(counters):
+    """19 (c): CohortSpec(K=50, spare=10) under unreliable_edge: 3 rounds,
+    save_state, load_state into a fresh build, 3 more, bit for bit against
+    6 rounds alone; the kept cohorts those of a host recomputation, and
+    the clients whose data advanced exactly the kept ones."""
+    import tempfile
+    from repro_torch.federated.simulation import load_state, save_state
+    spec = sampled_spec(SAMPLED_M, SAMPLED_K, SAMPLED_SPARE,
+                        scenario="unreliable_edge")
+
+    def run_both(tmp):
+        full_sim = _on_card(spec.build(), "spare cohorts")
+        full_state, full = full_sim.run(full_sim.init(5), max_rounds=6,
+                                        eval_every=3)
+        first = spec.build()
+        mid, _ = first.run(first.init(5), max_rounds=3, eval_every=3)
+        path = str(Path(tmp) / "spare.pkl")
+        save_state(path, mid)
+        fresh = spec.build()
+        _, tail = fresh.run(load_state(path, like=fresh.init()),
+                            max_rounds=3, eval_every=3)
+        return full_sim, full_state, full, tail
+
+    with tempfile.TemporaryDirectory() as tmp:
+        (sim, state, full, tail), launches = _launched(
+            counters, lambda: run_both(tmp))
+    _check_quantize_rounds("sampled", launches, 12)
+    same = (_full_records(tail) == _full_records(full)[3:]
+            and _params_same(tail.params, full.params))
+    _, stream = sim._materialize(sim.init(5))
+    cands = stream.draw_cohorts(6)
+    _, t_cm = sim._chunk_uplink(stream.draw_chunk(6))
+    kept = sim._select_cohorts(cands, t_cm)
+    host = _kept_cohorts(sim, cands, t_cm)
+    touched = set(state.data["clients"])
+    agree = ([list(map(int, r)) for r in kept] == host
+             and touched == {c for r in host for c in r})
+    print(f"[sampled] (c) K = {SAMPLED_K} + {SAMPLED_SPARE} spare under "
+          f"unreliable_edge: launches {launches}; participants "
+          f"{[r.n_participants for r in full.history]}; 3 rounds, "
+          f"save_state, load_state, 3 rounds: records and params bit for bit "
+          f"against 6 rounds alone {same}; kept cohorts equal the host's "
+          f"recomputation and the {len(touched)} clients whose data advanced "
+          f"{agree}", flush=True)
+    if not (same and agree):
+        raise SystemExit("spare-cohort resume or selection is wrong")
+    return launches
+
+
+def phase_sampled_fleet(counters, card):
+    """19 (d): run_fleet of 4 seeds of (b): one quantize launch a round
+    over S x K x rows; each member its run alone, bit for bit."""
+    import torch
+    sim = _on_card(sampled_spec(SAMPLED_M, SAMPLED_K).build(), "fleet")
+    t0 = time.perf_counter()
+    (fleet, q_rows), launches = _launched(counters, lambda: _quantize_rows(
+        lambda: sim.run_fleet(seeds=FLEET_SEEDS, max_rounds=3,
+                              eval_every=3)))
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    _check_quantize_rounds("sampled", launches, 3)
+    alone = [sim.run(sim.init(s), max_rounds=3, eval_every=3)[1]
+             for s in FLEET_SEEDS]
+    same = [_full_records(f) == _full_records(a)
+            and _params_same(f.params, a.params)
+            for f, a in zip(fleet.results, alone)]
+    print(f"[sampled] (d) run_fleet(seeds=range({len(FLEET_SEEDS)})) of (b) "
+          f"on {card}: 3 rounds in {elapsed:.4f} s (warm-up included), "
+          f"launches {launches}, quantize rows a launch {q_rows}; each "
+          f"member its run alone bit for bit {same}", flush=True)
+    rows = q_rows[0] // (len(FLEET_SEEDS) * SAMPLED_K)
+    if q_rows != [len(FLEET_SEEDS) * SAMPLED_K * rows] * 3 or not all(same):
+        raise SystemExit("the sampled fleet breaks phase 11's contract")
+    return launches
+
+
+def phase_sampled_reference(counters):
+    """19 (e): compressed mnist_sampled, 4 rounds, on the card and on the
+    CPU from the same model and quantizer noise: cohorts (the host streams
+    and the clients whose data advanced), clock, bits and participants
+    exact; losses and params within phase 5's tolerances."""
+    import torch
+    from repro_torch.kernels.quantize import ref
+    from repro_torch.utils.tree import leaves
+    spec = compressed_spec("mnist_sampled")
+    out = {}
+    for d in ("cuda", "cpu"):
+        noise_gen = torch.Generator().manual_seed(7)
+
+        def noise(_generator, shape, d=d, noise_gen=noise_gen):
+            return ref.stochastic_noise(noise_gen, shape).to(d)
+
+        sim = spec.build(device=d, noise=noise)
+        out[d], launches = _launched(counters, lambda: sim.run(
+            sim.init(), max_rounds=4, eval_every=2))
+        if d == "cuda":
+            card_launches = launches
+    (c_st, c_res), (h_st, h_res) = out["cuda"], out["cpu"]
+    _check_quantize_rounds("sampled", card_launches, 4)
+    exact = (_records(c_res) == _records(h_res)
+             and repr(c_st.stream) == repr(h_st.stream)
+             and repr(c_st.data) == repr(h_st.data))
+    loss = max(abs(a.train_loss - b.train_loss) / abs(b.train_loss)
+               for a, b in zip(c_res.history, h_res.history))
+    param = max(float((a.cpu() - b).abs().max())
+                for a, b in zip(leaves(c_res.params), leaves(h_res.params)))
+    print(f"[sampled] (e) mnist_sampled card vs CPU, 4 rounds: launches "
+          f"{card_launches}; cohorts, clock, bits and participants exact "
+          f"{exact} (participants {[r.n_participants for r in c_res.history]}"
+          f"); max rel loss gap {loss:.3g} (tol 1e-5), max param gap "
+          f"{param:.3g} (tol 5e-4)", flush=True)
+    if not exact or loss > 1e-5 or param > 5e-4:
+        raise SystemExit("the card's sampled run disagrees with the CPU's")
+    return card_launches
+
+
+def _steady(sim, state):
+    """Steady-state s/round of `sim` from `state`: one chunk of 3 rounds of
+    warm-up, then SAMPLED_TIMED_CHUNKS chunks of 3, each timed alone."""
+    state, _ = sim.run_chunk(state, 3)
+    per_round = []
+    for _ in range(SAMPLED_TIMED_CHUNKS):
+        t0 = time.perf_counter()
+        state, _ = sim.run_chunk(state, 3)
+        per_round.append((time.perf_counter() - t0) / 3)
+    return state, statistics.median(per_round), per_round
+
+
+def _host_draws(sim, state, n=3, reps=5):
+    """Median host seconds a round of a sampled chunk's draws: the cohort
+    draw, the M-wide realization and its uplink resolution, and the index
+    stack, each on fresh host streams at `state`."""
+    from repro_torch.federated.client import stack_cohort_indices
+    parts = {"cohorts": [], "realization": [], "indices": []}
+    for _ in range(reps):
+        iters, stream = sim._materialize(state)
+        t0 = time.perf_counter()
+        cohorts = stream.draw_cohorts(n)
+        t1 = time.perf_counter()
+        sim._chunk_uplink(stream.draw_chunk(n))
+        t2 = time.perf_counter()
+        stack_cohort_indices(iters, cohorts, sim.fed.local_rounds)
+        t3 = time.perf_counter()
+        for k, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+            parts[k].append(dt / n)
+    return {k: statistics.median(v) for k, v in parts.items()}
+
+
+def phase_sampled_cost(counters, card, scale, dense):
+    """19 (f): steady-state s/round of (b) beside a dense M = K run, the
+    host's share of a sampled round, and one profiled round (none a
+    gate)."""
+    sim, state, _ = scale
+    state, s_round, s_runs = _steady(sim, state)
+    _, d_round, d_runs = _steady(dense, dense.init())
+    print(f"[sampled] (f) steady state on {card}: K = {SAMPLED_K} of M = "
+          f"{SAMPLED_M} {s_round!r} s per round, dense M = {SAMPLED_K} "
+          f"{d_round!r} (chunks {s_runs!r} and {d_runs!r}); throughput "
+          f"ratio {d_round / s_round:.3f} (the reference's CPU gate "
+          f">= {SAMPLED_REF_GATE}, not a gate here)", flush=True)
+    host = _host_draws(sim, state)
+    total = sum(host.values())
+    print(f"[sampled] (f) host draws a round: cohorts {host['cohorts']!r} s, "
+          f"M-wide realization and uplink {host['realization']!r} s, index "
+          f"stack {host['indices']!r} s; {total / s_round:.1%} of the "
+          "sampled round", flush=True)
+    for ops in counters.values():
+        ops.launches = 0
+    _, wall, busy, top = profiled(lambda: sim.run(state, max_rounds=3,
+                                                  eval_every=3))
+    launches = {k: ops.launches for k, ops in counters.items()}
+    print(f"[sampled] (f) profiled 3 rounds on {card}: wall {wall:.4f} s, "
+          f"device busy {busy:.4f} s ({busy / wall:.1%}; idle "
+          f"{1 - busy / wall:.1%}), launches {launches}, profiler on",
+          flush=True)
+    for kname, sec in top[:6]:
+        print(f"[sampled]   {sec / 3 * 1e3:9.3f} ms/round {sec / busy:6.1%}  "
+              f"{kname[:90]}")
+    print_fold_time("sampled", top, busy, 3)
+    return launches
+
+
 # -- the Study: DEFL vs FedAvg vs Rand (phase 17) ------------------------------------
 
 # (a): the twin's Fig. 2 comparison, one scenario, FIG2_SEEDS seeds, up to
@@ -2436,6 +2810,16 @@ def main() -> int:
     fl_launches.append(phase_backends_cost(counters, card, paper))
     print(f"[backends] compressed loop params bit for bit against batched: "
           f"{loop_bits}", flush=True)
+
+    # -- 19. sampled participation: K-client cohorts of M clients ------------
+    fl_launches.extend(phase_sampled_dense(counters, paper))
+    launches, scale, dense = phase_sampled_scale(counters, card)
+    fl_launches.extend(launches)
+    fl_launches.append(phase_sampled_spare(counters))
+    fl_launches.append(phase_sampled_fleet(counters, card))
+    fl_launches.append(phase_sampled_reference(counters))
+    fl_launches.append(phase_sampled_cost(counters, card, scale, dense))
+    del scale, dense
 
     # -- 17. the Study: DEFL vs FedAvg vs Rand -------------------------------
     fig2, fig2_launches = phase_fig2(counters, card)

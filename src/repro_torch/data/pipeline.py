@@ -4,7 +4,8 @@ Copy of repro/data/pipeline.py's `BatchIterator` (the same RNG calls, so
 the same seed draws the same batch indices), with `batch_from` gathering
 from tensors: the chunked path uploads the dataset to the device once
 and gathers every batch there from the drawn int32 indices, while the
-per-round backends take `next_batch`, gathered on the host.
+per-round backends take `next_batch`, gathered on the host. With it,
+`ClientDataPool`, the lazy per-client pool of sampled participation.
 """
 from __future__ import annotations
 
@@ -88,3 +89,80 @@ class BatchIterator:
         host numpy arrays): with idx shaped (..., B) the leaves come out
         (..., B, sample...)."""
         return {"x": arrays["x"][idx], "y": arrays["y"][idx]}
+
+
+class ClientDataPool:
+    """Lazy per-client batch-iterator pool for population-scale M.
+
+    The dense data path materializes one `BatchIterator` per client up
+    front (an M-long Python list — fine at M <= a few hundred, absurd at
+    M = 10^5-10^6 when only K clients participate per round). The pool
+    holds an `indices_fn(m)` instead and materializes a client's iterator
+    on first touch, seeded `seed + m` — exactly the dense factory's
+    per-client seed, so a pool over the same partition produces
+    bit-identical batch streams to the dense list.
+
+    Checkpoint state is O(touched clients): untouched clients carry no
+    state (a fresh `BatchIterator(seed + m)` IS their snapshot), so
+    `state()` snapshots only the touched ones. `set_state` is lazy where
+    the reference's rebuilds every touched client's iterator: a client's
+    snapshot is applied when it is next drawn, and until then it is its
+    own state, so restoring a state costs nothing per client (a run that
+    resumes every chunk would otherwise rebuild all the clients it has
+    touched each time). The batches and the snapshots are the
+    reference's, key for key and in its order.
+    """
+
+    def __init__(self, data: ClassificationData, indices_fn, sizes,
+                 batch_size: int, seed: int = 0):
+        self.data = data
+        self._indices_fn = indices_fn
+        self.sizes = np.asarray(sizes, np.int64)
+        self.batch_size = int(batch_size)
+        self.seed = int(seed)
+        self._iters: Dict[int, BatchIterator] = {}
+        # Restored snapshots not yet applied, and every touched client in
+        # the order the reference's snapshot lists them.
+        self._pending: Dict[int, Dict] = {}
+        self._order: Dict[int, None] = {}
+
+    @classmethod
+    def from_parts(cls, data: ClassificationData, parts, batch_size: int,
+                   seed: int = 0) -> "ClientDataPool":
+        """Pool over an explicit partition list (small-M sampled runs):
+        same indices, same per-client seeds as the dense factory."""
+        sizes = np.array([len(p) for p in parts], np.int64)
+        return cls(data, lambda m: parts[m], sizes, batch_size, seed)
+
+    def __len__(self) -> int:
+        return len(self.sizes)
+
+    def client(self, m: int) -> BatchIterator:
+        it = self._iters.get(m)
+        if it is None:
+            it = BatchIterator(self.data, self._indices_fn(m),
+                               self.batch_size, seed=self.seed + m)
+            snap = self._pending.pop(m, None)
+            if snap is not None:
+                it.set_state(snap)
+            self._iters[m] = it
+            self._order.setdefault(m, None)
+        return it
+
+    # -- snapshot / restore (SimState checkpointing) ------------------------
+    def state(self) -> Dict:
+        return {"clients": {
+            m: (self._iters[m].state() if m in self._iters
+                else self._pending[m]) for m in self._order}}
+
+    def set_state(self, state: Dict) -> None:
+        self._iters = {}
+        self._pending = {int(m): s
+                         for m, s in state.get("clients", {}).items()}
+        self._order = dict.fromkeys(self._pending)
+
+    # -- device-resident gathering (scan backend) ---------------------------
+    def device_arrays(self) -> Dict[str, np.ndarray]:
+        return {"x": self.data.x, "y": self.data.y}
+
+    batch_from = staticmethod(BatchIterator.batch_from)

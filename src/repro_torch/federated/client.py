@@ -1,11 +1,13 @@
 """Client-side local computation (Alg. 1 line 3) and batch scheduling.
 
-Port of repro/federated/client.py for dense populations: one client's V
-local SGD steps (`make_local_update`, `client_round`) and the stacking
-helpers that feed the simulator's backends. Every helper consumes the
-client iterators round by round, client by client, step by step — the
-reference's order — so the per-client loop, the batched round and the
-chunked path all draw the same batches.
+Port of repro/federated/client.py: one client's V local SGD steps
+(`make_local_update`, `client_round`) and the stacking helpers that feed
+the simulator's backends, for a dense population (every client every
+round) and for sampled cohorts (`stack_cohort_batches`,
+`stack_cohort_indices`: lane k of a round holds client cohort[k]). Every
+helper consumes the client iterators round by round, client (lane) by
+client, step by step — the reference's order — so the per-client loop,
+the batched round and the chunked path all draw the same batches.
 """
 from __future__ import annotations
 
@@ -87,4 +89,42 @@ def stack_chunk_indices(iterators: List, rounds: int, V: int) -> np.ndarray:
         for c, it in enumerate(iterators):
             for v in range(V):
                 out[r, c, v] = it.next_indices()
+    return out
+
+
+def _client_iter(source, m: int):
+    """Client m's iterator from either data source: a ClientDataPool (lazy,
+    population-scale) or a dense iterator list."""
+    return source.client(m) if hasattr(source, "client") else source[m]
+
+
+def stack_cohort_batches(source, cohort: np.ndarray, V: int) -> Dict:
+    """One sampled round of batches -> a host tree with leading (K, V)
+    axes: lane k holds client cohort[k]'s next V batches. Lanes are
+    consumed in ascending-cohort (lane) order, so at K = M (cohort ==
+    arange(M)) this consumes every iterator exactly like
+    `stack_client_batches`."""
+    return stack_batches([
+        stack_batches([_client_iter(source, int(m)).next_batch()
+                       for _ in range(V)])
+        for m in np.asarray(cohort)])
+
+
+def stack_cohort_indices(source, cohorts: np.ndarray, V: int) -> np.ndarray:
+    """A sampled chunk of batch indices -> (R, K, V, B) int32: round r's
+    lane k draws from client cohorts[r, k]'s stream. Only participating
+    clients' iterators advance (absent clients keep their batch cursor and
+    re-enter later where they left off); per round, lanes are consumed in
+    ascending order, so at K = M this is `stack_chunk_indices` over the
+    full iterator list, draw for draw."""
+    cohorts = np.asarray(cohorts)
+    R, K = cohorts.shape
+    bs = (source.batch_size if hasattr(source, "batch_size")
+          else source[0].batch_size)
+    out = np.empty((R, K, V, bs), np.int32)
+    for r in range(R):
+        for k in range(K):
+            it = _client_iter(source, int(cohorts[r, k]))
+            for v in range(V):
+                out[r, k, v] = it.next_indices()
     return out

@@ -1,21 +1,22 @@
 """Declarative experiment API: `ExperimentSpec.build() -> Simulator`.
 
-Port of repro/federated/experiment.py for dense populations: an
-`ExperimentSpec` is the frozen value form of a simulator's wiring —
-model, data + partition, population, edge scenario and faults, wireless,
-plan-or-fed — with `build()` materializing the `Simulator` and a small
-registry of named configurations:
+Port of repro/federated/experiment.py: an `ExperimentSpec` is the frozen
+value form of a simulator's wiring — model, data + partition, population
+(dense, or sampled K-client cohorts of M clients), edge scenario and
+faults, wireless, plan-or-fed — with `build()` materializing the
+`Simulator` and a small registry of named configurations:
 
     spec = experiment.get("mnist_storm")    # hetero_storm, planned
     sim = spec.build()                      # on the CUDA card
     state, res = sim.run(sim.init(), max_rounds=100, eval_every=10)
     fleet = sim.run_fleet(seeds=range(8), max_rounds=100, eval_every=10)
     loop = spec.replace(backend="loop").build()   # the per-client oracle
+    big = experiment.get("mnist_paper").replace(
+        population=PopulationSpec(M=10_000, cohort=CohortSpec(K=50)))
 
-The reference's fields for traces, populations with cohorts, client
-sharding, asynchronous aggregation (backend='async' and async_spec) and
-the kernel implementation switch are not here: the port runs none of them
-yet (ROADMAP.md, queue 1).
+The reference's fields for traces, asynchronous aggregation
+(backend='async' and async_spec) and the kernel implementation switch
+are not here: the port runs none of them yet (ROADMAP.md, queue 1).
 
 The plan, the data, the partition and the device population are the
 reference's, value for value (numpy copies of its numpy code).
@@ -23,6 +24,7 @@ reference's, value for value (numpy copies of its numpy code).
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
@@ -32,13 +34,14 @@ import torch
 from repro_torch.configs.base import ComputeConfig, FedConfig, WirelessConfig
 from repro_torch.convert import to_torch
 from repro_torch.core import defl, delay
-from repro_torch.data.pipeline import BatchIterator
+from repro_torch.data.pipeline import BatchIterator, ClientDataPool
 from repro_torch.data.synthetic import make_cifar_like, make_mnist_like
 from repro_torch.device import resolve_device
 from repro_torch.federated import scenarios
 from repro_torch.federated.faults import FaultModel
 from repro_torch.federated.partition import (partition_dirichlet,
-                                             partition_sizes)
+                                             partition_sizes,
+                                             partition_virtual)
 from repro_torch.federated.simulation import BACKENDS, Simulator
 from repro_torch.kernels.quantize.ref import stochastic_noise
 from repro_torch.models import cnn
@@ -60,6 +63,80 @@ MODELS = {
 
 DATASETS = {"mnist": make_mnist_like, "cifar": make_cifar_like}
 
+# Dense device state above this many clients is almost certainly a
+# mistake (the stacked params carry one lane per client): build() warns
+# DeprecationWarning, pointing at PopulationSpec(M, cohort=CohortSpec(K)).
+DENSE_M_DEPRECATION_THRESHOLD = 4096
+
+
+@dataclass(frozen=True)
+class CohortSpec:
+    """Per-round sampled participation: K clients drawn from the
+    population each round.
+
+    K        cohort size — the device-resident client state is O(K).
+    sampler  'uniform' (each round's cohort uniform without replacement)
+             | 'weighted' (D_m-weighted Gumbel top-K without
+             replacement: data-rich clients are drawn more often).
+    spare    over-provisioning: each round draws K + spare candidates
+             from the same cohort generator and keeps the K deadline-
+             feasible-fastest (ties by client index); spare=0 is the
+             plain draw.
+    """
+
+    K: int
+    sampler: str = "uniform"
+    spare: int = 0
+
+    def __post_init__(self):
+        self.validate()
+
+    def validate(self) -> "CohortSpec":
+        if self.K < 1:
+            raise ValueError(f"CohortSpec.K must be >= 1, got {self.K}")
+        if self.sampler not in ("uniform", "weighted"):
+            raise ValueError(
+                f"unknown CohortSpec.sampler {self.sampler!r}; expected "
+                "'uniform' or 'weighted'")
+        if not isinstance(self.spare, int) or self.spare < 0:
+            raise ValueError(
+                f"CohortSpec.spare must be an int >= 0, got {self.spare!r}")
+        return self
+
+
+@dataclass(frozen=True)
+class PopulationSpec:
+    """The client population: its size and, optionally, the per-round
+    participation regime.
+
+    M       population size. Plain `fed.n_devices` (no PopulationSpec)
+            stays sugar for a dense M-client population — the same
+            simulator, bit for bit.
+    cohort  None runs dense (every client computes every round, device
+            state O(M)); CohortSpec(K) runs sampled participation
+            (device state O(K), the population model O(M) on the host).
+    """
+
+    M: int
+    cohort: Optional[CohortSpec] = None
+
+    def __post_init__(self):
+        self.validate()
+
+    def validate(self) -> "PopulationSpec":
+        if self.M < 1:
+            raise ValueError(f"PopulationSpec.M must be >= 1, got {self.M}")
+        if self.cohort is not None:
+            self.cohort.validate()
+            if self.cohort.K > self.M:
+                raise ValueError(
+                    f"cohort K={self.cohort.K} exceeds population M={self.M}")
+            if self.cohort.K + self.cohort.spare > self.M:
+                raise ValueError(
+                    f"cohort K+spare={self.cohort.K + self.cohort.spare} "
+                    f"exceeds population M={self.M}")
+        return self
+
 
 @dataclass(frozen=True)
 class ExperimentSpec:
@@ -70,6 +147,16 @@ class ExperimentSpec:
                    compression, ...). With `plan=True`, b/theta/V are
                    solved against the drawn population and `fed` provides
                    the problem constants (epsilon, nu, c, M).
+    population     optional PopulationSpec: its M overrides fed.n_devices
+                   (`base_fed()`), and its CohortSpec turns on K-client
+                   sampled participation (device state O(K), cohorts
+                   drawn on the host from the M-client population).
+                   `PopulationSpec(M)` with no cohort is `fed.n_devices=M`
+                   (dense; build() warns DeprecationWarning from
+                   DENSE_M_DEPRECATION_THRESHOLD clients up).
+    shard_clients  the reference's client-axis sharding ('scan', no
+                   compression): on one device the port runs the
+                   unsharded step (Simulator's docstring).
     model          registry name (MODELS) or a literal cnn.CNNConfig.
     dataset        'mnist' | 'cifar' (synthetic *-like tasks, DATASETS).
     n_train/n_test dataset sizes; alpha the Dirichlet non-IID knob.
@@ -86,7 +173,8 @@ class ExperimentSpec:
     heterogeneity  the population's lognormal spread when no scenario is
                    given (0: the paper's homogeneous devices).
     compute        the devices' compute model; wireless the uplink.
-    plan           solve Alg. 1 for (b*, theta*) before building.
+    plan           solve Alg. 1 for (b*, theta*) before building; under a
+                   CohortSpec the Eq. 12 effective M is the cohort's K.
     plan_method    the KKT solver: 'closed_form' (Eq. 29) | 'corrected'
                    | 'numerical' (kkt.solve).
     batch_cap      cap applied to a planned b* (paper §VI-B); None
@@ -97,6 +185,8 @@ class ExperimentSpec:
     """
 
     fed: FedConfig = FedConfig()
+    population: Optional[PopulationSpec] = None
+    shard_clients: bool = False
     model: Union[str, cnn.CNNConfig] = "mnist_cnn"
     dataset: str = "mnist"
     n_train: int = 1500
@@ -153,16 +243,34 @@ class ExperimentSpec:
             fm = scenarios.get(ref).faults
         return fm if fm is not None and fm.active else None
 
+    def n_devices(self) -> int:
+        """Population size M: PopulationSpec.M when given (it overrides
+        fed.n_devices), else fed.n_devices."""
+        return (self.fed.n_devices if self.population is None
+                else self.population.M)
+
+    def cohort_spec(self) -> Optional[CohortSpec]:
+        """The sampled-participation regime, or None for dense."""
+        return None if self.population is None else self.population.cohort
+
+    def base_fed(self) -> FedConfig:
+        """`fed` with the PopulationSpec's M applied: what the plan, the
+        build and the Study's grouping read n_devices from."""
+        M = self.n_devices()
+        if M == self.fed.n_devices:
+            return self.fed
+        return dataclasses.replace(self.fed, n_devices=M)
+
     def device_population(self) -> delay.DevicePopulation:
         """Draw the (M,) device population (compute + channel): the
         scenario's when there is one."""
+        M = self.n_devices()
         ref = self.scenario_ref()
         if ref is not None:
             return scenarios.get(ref).population(
-                self.fed.n_devices, self.compute, self.wireless, self.seed)
+                M, self.compute, self.wireless, self.seed)
         return delay.draw_population(
-            self.fed.n_devices, self.compute, self.wireless, self.seed,
-            self.heterogeneity)
+            M, self.compute, self.wireless, self.seed, self.heterogeneity)
 
     def update_bits(self) -> float:
         """Raw float32 wire size of one model update (the plan's input;
@@ -175,19 +283,24 @@ class ExperimentSpec:
                     ) -> Optional[defl.DEFLPlan]:
         if not self.plan:
             return None
+        fed = self.base_fed()
+        cohort = self.cohort_spec()
+        K = None if cohort is None else cohort.K
         ref = self.scenario_ref()
         if ref is not None:
             return scenarios.plan_for_scenario(
-                self.fed, ref, self.update_bits(), cc=self.compute,
-                wc=self.wireless, seed=self.seed, method=self.plan_method)
-        return defl.make_plan(self.fed, pop, self.update_bits(),
+                fed, ref, self.update_bits(), cc=self.compute,
+                wc=self.wireless, seed=self.seed, method=self.plan_method,
+                cohort_size=K, spare=0 if cohort is None else cohort.spare)
+        return defl.make_plan(fed, pop, self.update_bits(),
                               wireless=self.wireless,
-                              method=self.plan_method)
+                              method=self.plan_method, cohort_size=K)
 
     def _fed_with_plan(self, plan: Optional[defl.DEFLPlan]) -> FedConfig:
+        base = self.base_fed()
         if plan is None:
-            return self.fed
-        fed = defl.plan_to_fedconfig(plan, self.fed)
+            return base
+        fed = defl.plan_to_fedconfig(plan, base)
         b = fed.batch_size if self.batch_cap is None else min(
             fed.batch_size, self.batch_cap)
         return dataclasses.replace(fed, batch_size=b, update_bytes=None)
@@ -210,8 +323,8 @@ class ExperimentSpec:
         scenarios re-derive over the truncated delay model, so both keep
         their scalar paths. `Study.plans()` solves all batchable arms in
         one `defl.make_plan_batch` call, bit-identical to per-arm
-        `analytic_plan()`. The port has no sampled cohorts yet, so
-        `cohort_size` is None."""
+        `analytic_plan()`; a sampled arm's request carries its cohort's
+        K."""
         if not self.plan:
             return None
         participation = 1.0
@@ -224,11 +337,12 @@ class ExperimentSpec:
                     or fm.deadline_factor is not None):
                 return None
             participation = sc.expected_participation
+        cohort = self.cohort_spec()
         return defl.PlanRequest(
-            fed=self.fed, pop=self.device_population(),
+            fed=self.base_fed(), pop=self.device_population(),
             update_bits=self.update_bits(), wireless=self.wireless,
             method=self.plan_method, participation=participation,
-            cohort_size=None)
+            cohort_size=None if cohort is None else cohort.K)
 
     def analytic_plan(self) -> defl.DEFLPlan:
         """The delay-model operating point, always available: the solved
@@ -237,7 +351,7 @@ class ExperimentSpec:
         the FedAvg/Rand baseline rows of the paper's tables)."""
         if self.plan:
             return self.resolve_plan()
-        fed = self.fed
+        fed = self.base_fed()
         return defl.fixed_plan(
             fed, self.device_population(), self.update_bits(),
             b=fed.batch_size, V=fed.local_rounds,
@@ -260,21 +374,53 @@ class ExperimentSpec:
         (cnn.cnn_value_and_grad): on the card a client's numbers then do
         not depend on the clients or the padding beside it, so a Study
         member or a fleet member repeats its run alone. Evaluation goes
-        through the same products (cnn.cnn_logits_stacked)."""
+        through the same products (cnn.cnn_logits_stacked).
+
+        Sampled participation (PopulationSpec.cohort) swaps the dense
+        per-client iterator list for a lazy ClientDataPool: at M <=
+        n_train over the same Dirichlet partition with the same per-client
+        seeds (so a K = M sampled build is the dense one, bit for bit),
+        above that — where a disjoint split is impossible — over one
+        deterministic virtual shard a client (partition.partition_virtual,
+        O(1) host state a client)."""
         dev = resolve_device(device)
         make = DATASETS[self.dataset]
         pop = self.device_population()
         fed = self._fed_with_plan(self._solve_plan(pop))
+        cohort = self.cohort_spec()
+        if (cohort is None and self.backend != "loop"
+                and fed.n_devices >= DENSE_M_DEPRECATION_THRESHOLD):
+            warnings.warn(
+                f"dense device state with M={fed.n_devices} clients is "
+                "deprecated: the stacked params carry one lane per client. "
+                "Use population=PopulationSpec(M=..., cohort=CohortSpec("
+                "K=...)) for O(K) device state.",
+                DeprecationWarning, stacklevel=2)
         cfg = self.model_config()
         data = make(self.n_train, seed=self.seed)
         init = (cnn.init_cnn(cfg, self.seed, dev) if params is None
                 else to_torch(params, dev))
-        parts = partition_dirichlet(data, fed.n_devices, alpha=self.alpha,
-                                    seed=self.seed)
+        if cohort is not None and fed.n_devices > self.n_train:
+            # Population scale: no M-long partition list exists anywhere.
+            indices_fn, data_sizes = partition_virtual(
+                self.n_train, fed.n_devices, seed=self.seed)
 
-        def data_factory(seed: int):
-            return [BatchIterator(data, p, fed.batch_size, seed=seed + i)
-                    for i, p in enumerate(parts)]
+            def data_factory(seed: int):
+                return ClientDataPool(data, indices_fn, data_sizes,
+                                      fed.batch_size, seed=seed)
+        else:
+            parts = partition_dirichlet(data, fed.n_devices,
+                                        alpha=self.alpha, seed=self.seed)
+            data_sizes = partition_sizes(parts)
+            if cohort is not None:
+                def data_factory(seed: int):
+                    return ClientDataPool.from_parts(
+                        data, parts, fed.batch_size, seed=seed)
+            else:
+                def data_factory(seed: int):
+                    return [BatchIterator(data, p, fed.batch_size,
+                                          seed=seed + i)
+                            for i, p in enumerate(parts)]
 
         eval_fn = eval_batch_fn = None
         if self.with_eval:
@@ -302,14 +448,18 @@ class ExperimentSpec:
             else self.dataset)
         return Simulator(
             lambda p, batch: cnn.cnn_loss(cfg, p, batch), init,
-            data_factory, partition_sizes(parts), fed, sgd(fed.lr), pop,
+            data_factory, data_sizes, fed, sgd(fed.lr), pop,
             wireless=self.wireless, eval_fn=eval_fn, label=label,
             device=dev, noise=noise, eval_batch_fn=eval_batch_fn,
             scenario=ref, faults=self.faults, backend=self.backend,
             masked_loss_fn=lambda p, batch, m, n: cnn.cnn_loss_masked(
                 cfg, p, batch, m, n),
             value_and_grad=lambda p, batch, m=None, n=None: (
-                cnn.cnn_value_and_grad(cfg, p, batch, m, n)))
+                cnn.cnn_value_and_grad(cfg, p, batch, m, n)),
+            cohort=None if cohort is None else cohort.K,
+            cohort_sampler="uniform" if cohort is None else cohort.sampler,
+            cohort_spare=0 if cohort is None else cohort.spare,
+            shard_clients=self.shard_clients)
 
 
 # ---------------------------------------------------------------------------
@@ -354,6 +504,12 @@ register("mnist_smoke", ExperimentSpec(
     fed=FedConfig(n_devices=3, batch_size=8, theta=0.62, lr=0.05),
     model="mnist_cnn_small", dataset="mnist", n_train=240, n_test=80,
     label="mnist_smoke"))
+register("mnist_sampled", ExperimentSpec(
+    fed=FedConfig(batch_size=8, theta=0.62, lr=0.05),
+    population=PopulationSpec(M=40, cohort=CohortSpec(K=8)),
+    model="mnist_cnn_small", dataset="mnist", n_train=240, n_test=80,
+    scenario="dropout",
+    label="mnist_sampled"))
 register("mnist_storm", ExperimentSpec(
     fed=FedConfig(n_devices=10, epsilon=0.01, nu=2.0, c=CALIBRATED_C,
                   lr=0.05),

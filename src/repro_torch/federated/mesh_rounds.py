@@ -23,6 +23,14 @@ Eq. 8 clock (`_masked_clock`) and its in-graph uplink bits are not
 ported: nothing in the port reads them, because the records take the
 clock and the bits from the float64 host model (core/delay.py).
 
+Sampled participation (Simulator(cohort=K)) runs the same round over K
+lanes, each round occupied by a freshly drawn cohort of the M-client
+population: lanes change owners every round, so the per-lane FedAvg
+sizes arrive as one (S, K) row a round instead of a chunk constant
+(build_fleet_chunk's (R, S, K) weights). At K = M the rows equal the dense
+constant and the ops are the same, so the result is the dense result bit
+for bit.
+
 Aggregation modes:
   'allreduce'       the weighted FedAvg mean in float32 (paper-faithful).
   'int8_stochastic' every client's delta goes through the int8
@@ -143,8 +151,10 @@ def envelope_local_steps_fn(value_and_grad: Callable, opt: Optimizer):
 
 def _participation_weights(sizes: torch.Tensor, mask: torch.Tensor):
     """FedAvg weights renormalised over each member's participating
-    clients: sizes (C,) raw data sizes, mask (S*C,) 1.0 where the update
-    arrived -> ((S, C) weights, (S,) any participant).
+    clients: sizes (C,) raw data sizes shared by the members, or (S, C)
+    one row a member (sampled cohorts: lane c holds another client in each
+    member), mask (S*C,) 1.0 where the update arrived -> ((S, C) weights,
+    (S,) any participant).
 
     Each member has its own mask, so the weights are (S, C), one row a
     member, where the dense path shares one (C,) vector. Dropped clients
@@ -152,7 +162,7 @@ def _participation_weights(sizes: torch.Tensor, mask: torch.Tensor):
     before the sum, so they add an exact +0.0); a zero-participation
     member divides by 1 instead of 0 and keeps its old params
     (`_keep_old_params`)."""
-    C = sizes.shape[0]
+    C = sizes.shape[-1]
     wm = sizes.to(torch.float32) * mask.to(torch.float32).reshape(-1, C)
     s = torch.sum(wm, dim=1, keepdim=True)
     any_p = s > 0
@@ -291,7 +301,8 @@ def build_round_step(value_and_grad: Callable, opt: Optimizer,
 
     Without a mask, weights are the (C,) FedAvg weights summing to 1,
     shared by the members. With a (N,) participation mask (a scenario's
-    round), weights are the (C,) raw data sizes, renormalised per member
+    round), weights are the raw data sizes, (C,) or (S, C) one row a
+    member (a sampled round's cohort sizes), renormalised per member
     over its participating clients; dropped clients keep their pre-round
     params and optimizer state and report loss 0; a member with no
     participant keeps its old params. guard (faults.FaultModel.guard_spec,
@@ -349,6 +360,9 @@ def build_fleet_round(value_and_grad: Callable, opt: Optimizer,
     over all S*C clients and one per-member weighted FedAvg; batches
     leaves are (S*C, V, B, ...).
 
+    weights are those of build_round_step: (C,), or with a mask also
+    (S, C), one row of cohort sizes a member (sampled participation).
+
     ys holds device tensors: 'loss' (S,), each member's train loss.
     Without a mask it is the unweighted client mean, as the reference's
     batched and scan paths report. With mask (S*C,), a scenario's
@@ -387,7 +401,10 @@ def build_fleet_round(value_and_grad: Callable, opt: Optimizer,
         new_p, new_s, per_client, m_eff = step(
             params, opt_state, batches, weights, u, mask, env)
         if mask is None:
-            return new_p, new_s, {"loss": _client_sum(per_client, C) / C}
+            total = _client_sum(per_client, C)
+            # Over a tensor, as the masked form divides by its count: a
+            # Python number would make CUDA multiply by its reciprocal.
+            return new_p, new_s, {"loss": total / torch.full_like(total, C)}
         msk = m_eff.reshape(-1, C)
         n = torch.sum(msk, dim=1)
         loss = (_client_sum(torch.where(m_eff > 0, per_client, 0.0), C)
@@ -425,12 +442,17 @@ def build_fleet_chunk(value_and_grad: Callable, opt: Optimizer,
     host (client.stack_chunk_batches) and uploaded in one transfer: the
     path of data sources without the index protocol. mask is (R, S*C) or
     None, and ys stacks each round's outputs along axis 1 ('loss' (S, R),
-    and so on)."""
+    and so on).
+
+    weights is one (C,) vector for every round, or (R, S, C): one row of
+    raw sizes a round and member, the cohort form of sampled participation
+    (n_clients = K lanes, which change owners every round)."""
     round_fn = build_fleet_round(value_and_grad, opt, n_clients, compress,
                                  noise, rows, guard, quorum, envelope)
 
     def chunk_step(params, opt_state, generators, weights, data: Dict, idx,
                    mask=None, env=None):
+        per_round = weights.dim() == 3
         ys: Dict[str, list] = {}
         n_rounds = (idx.shape[0] if idx is not None
                     else leaves(data)[0].shape[0])
@@ -438,7 +460,8 @@ def build_fleet_chunk(value_and_grad: Callable, opt: Optimizer,
             batches = (batch_from(data, idx[r]) if idx is not None
                        else tree_map(lambda x: x[r], data))
             params, opt_state, y = round_fn(
-                params, opt_state, generators, weights, batches,
+                params, opt_state, generators,
+                weights[r] if per_round else weights, batches,
                 None if mask is None else mask[r], env)
             for k, v in y.items():
                 ys.setdefault(k, []).append(v)

@@ -2,12 +2,13 @@
 
 Runs real training (PyTorch, on the card) while advancing a *simulated*
 wall clock from the paper's delay models (Eqs. 5, 7, 8). Port of the
-reference's `Simulator` (repro/federated/simulation.py) for a dense
-population, with its edge scenarios (federated/scenarios.py) and fault
-layer (federated/faults.py):
+reference's `Simulator` (repro/federated/simulation.py), for a dense
+population or sampled K-client cohorts of an M-client one, with its edge
+scenarios (federated/scenarios.py) and fault layer (federated/faults.py):
 
     sim   = Simulator(loss_fn, params, data_factory, sizes, fed, opt, pop,
-                      scenario="unreliable_edge", backend="scan")
+                      scenario="unreliable_edge", backend="scan",
+                      cohort=None)
     state = sim.init(seed)
     state, result  = sim.run(state, max_rounds=100, eval_every=10,
                              recovery=RecoveryPolicy())
@@ -40,6 +41,17 @@ Three synchronous backends share the same math:
       round's one (C, rows, 1024) draw, row m for client m, drawn for all
       M clients whatever the mask (the reference's sequential_client_keys
       rule), so the three backends stay on one generator stream.
+
+Sampled participation (`cohort=K`, 'scan' and 'batched'): each round a
+K-client cohort is drawn from the M clients on the host (uniform, or
+D_m-weighted with cohort_sampler='weighted'; with cohort_spare the K
+deadline-feasible-fastest of K + spare candidates), and only its members
+compute and upload. The device state is O(K): the stacked params carry K
+lanes, re-initialised from the global model every round (the local
+optimizer must be stateless), while the population model (data
+partitions, scenario masks, channel state) stays O(M) on the host. The
+fault semantics resolve M-wide first and are then gathered to the
+cohort's columns, so K = M is the dense run bit for bit.
 
 The Eq. 8 clock and the uplink bits come from the float64 host model
 (core/delay.py), exactly as the reference's records do. Under a scenario
@@ -78,6 +90,8 @@ from repro_torch.federated.client import (
     stack_chunk_batches,
     stack_chunk_indices,
     stack_client_batches,
+    stack_cohort_batches,
+    stack_cohort_indices,
 )
 from repro_torch.federated.faults import (DivergenceError, FaultModel,
                                           RecoveryPolicy)
@@ -149,9 +163,10 @@ class SimResult:
 class SimState:
     """Everything a run advances, as one immutable value.
 
-      params_C  stacked (C, ...) client params; every row equals the
-                global model between rounds ('loop': the global model
-                itself, unstacked, as in the reference)
+      params_C  stacked (C, ...) client params (C = K cohort lanes when
+                sampled); every row equals the global model between
+                rounds ('loop': the global model itself, unstacked, as in
+                the reference)
       opt_C     stacked per-client optimizer state ('loop': a tuple of
                 the M clients' states)
       rng       state of the run's quantizer-noise generator
@@ -165,8 +180,9 @@ class SimState:
       sim_time  cumulative Eq. 8 simulated seconds
       stream    ScenarioStream.state() snapshot; None means "fresh at
                 `seed`" (and any scenario-less simulator)
-      data      per-client iterator state() snapshots; None means "fresh
-                at `seed`" (or iterators without snapshots)
+      data      per-client iterator state() snapshots (a ClientDataPool's:
+                its touched clients only); None means "fresh at `seed`"
+                (or iterators without snapshots)
 
     No method writes into a state's tensors, so a state stays valid after
     it is passed to run(): the divergence guard keeps the pre-chunk state
@@ -274,6 +290,20 @@ class Simulator:
     (mesh_rounds.vmapped_value_and_grad). ExperimentSpec.build gives the
     CNN's own (cnn.cnn_value_and_grad), under which a member's round on
     the card does not depend on the members beside it or on its padding.
+
+    `cohort=K` turns on sampled participation (the module docstring): K in
+    [1, M], K + cohort_spare <= M, 'scan' or 'batched', a stateless local
+    optimizer; `data` may then give a data.ClientDataPool (one lazy object
+    for all M clients) instead of a list. A sampled simulator without a
+    scenario runs on 'uniform' (the cohort draws live on the scenario
+    stream), and a quorum resolves against K.
+
+    `shard_clients=True` is the reference's client-axis sharding over all
+    devices: 'scan' only, no compression, lanes dividing evenly over the
+    devices. With one device (the CPU, or one visible CUDA card) the port
+    runs the unsharded step, which is what the reference's mesh of one
+    device computes; more than one visible card raises
+    NotImplementedError (ROADMAP.md, queue 1).
     """
 
     def __init__(
@@ -296,6 +326,10 @@ class Simulator:
         masked_loss_fn: Optional[Callable] = None,
         value_and_grad: Optional[Callable] = None,
         backend: str = "scan",
+        cohort: Optional[int] = None,  # K-client sampled participation
+        cohort_sampler: str = "uniform",  # 'uniform' | 'weighted' (by D_m)
+        cohort_spare: int = 0,  # over-provisioned candidates a round
+        shard_clients: bool = False,
     ):
         # The constructor's arguments, for the recovery path's rebuilt
         # simulator (_recovery_variant).
@@ -305,7 +339,9 @@ class Simulator:
             wireless=wireless, eval_fn=eval_fn, label=label, device=device,
             noise=noise, eval_batch_fn=eval_batch_fn, scenario=scenario,
             faults=faults, masked_loss_fn=masked_loss_fn,
-            value_and_grad=value_and_grad, backend=backend)
+            value_and_grad=value_and_grad, backend=backend, cohort=cohort,
+            cohort_sampler=cohort_sampler, cohort_spare=cohort_spare,
+            shard_clients=shard_clients)
         self.device = resolve_device(device)
         if backend == "async":
             raise ValueError(
@@ -314,6 +350,41 @@ class Simulator:
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}")
         self.backend = backend
+        if cohort_sampler not in ("uniform", "weighted"):
+            raise ValueError(
+                f"unknown cohort_sampler {cohort_sampler!r}; "
+                "expected 'uniform' or 'weighted'")
+        if cohort is not None:
+            if backend == "loop":
+                raise ValueError(
+                    "cohort (sampled participation) requires backend "
+                    "'scan' or 'batched' — the loop reference is dense-only")
+            if not 1 <= int(cohort) <= pop.n:
+                raise ValueError(
+                    f"cohort must be in [1, {pop.n}], got {cohort}")
+        self._cohort = None if cohort is None else int(cohort)
+        self._sampled = self._cohort is not None
+        if not isinstance(cohort_spare, (int, np.integer)) or cohort_spare < 0:
+            raise ValueError(
+                f"cohort_spare must be an int >= 0, got {cohort_spare!r}")
+        if cohort_spare and not self._sampled:
+            raise ValueError(
+                "cohort_spare (over-provisioned cohorts) requires sampled "
+                "participation — pass cohort=K as well")
+        if self._sampled and self._cohort + int(cohort_spare) > pop.n:
+            raise ValueError(
+                f"cohort + cohort_spare ({cohort} + {cohort_spare}) must "
+                f"not exceed the population size {pop.n}")
+        self._spare = int(cohort_spare)
+        # Each round draws K + spare candidates and keeps the K
+        # deadline-feasible-fastest (_select_cohorts).
+        self._cohort_draw = (
+            None if self._cohort is None else self._cohort + self._spare)
+        self._cohort_weights = (
+            np.asarray(np.asarray(data_sizes), np.float64)
+            if (self._sampled and cohort_sampler == "weighted") else None)
+        # The stacked client axis: K cohort lanes when sampled, else M.
+        self._lanes = self._cohort if self._sampled else fed.n_devices
         self.loss_fn = loss_fn
         self._data_src = data
         self.data_sizes = data_sizes
@@ -338,9 +409,41 @@ class Simulator:
                 f"{len(probe)} client iterators, fed.n_devices="
                 f"{fed.n_devices} and a population of {pop.n}: all three "
                 "must be the client count M")
+        if hasattr(probe, "client") and not self._sampled:
+            raise ValueError(
+                "a ClientDataPool data source requires cohort sampling "
+                "(cohort=K) — the dense backends stack every client's "
+                "batches, which is exactly what the pool exists to avoid")
+        self.shard_clients = bool(shard_clients)
+        if shard_clients:
+            if backend != "scan":
+                raise ValueError(
+                    f"shard_clients requires backend='scan', not {backend!r}")
+            if fed.compress_updates:
+                raise ValueError(
+                    "shard_clients with compress_updates is unsupported: "
+                    "the int8 quantizer uses its own aggregation path")
+            n_dev = (torch.cuda.device_count() if self.device.type == "cuda"
+                     else 1)
+            if self._lanes % n_dev:
+                raise ValueError(
+                    f"client axis ({self._lanes} lanes) must divide evenly "
+                    f"over the {n_dev} available devices")
+            if n_dev > 1:
+                raise NotImplementedError(
+                    f"shard_clients over {n_dev} CUDA devices (a multi-GPU "
+                    "all-reduce of the FedAvg sum) is not ported: ROADMAP.md, "
+                    "queue 1, item 18. On one device the unsharded step is "
+                    "the sharded one's result.")
         self._init_params = tree_map(
             lambda x: torch.as_tensor(x, dtype=torch.float32,
                                       device=self.device), init_params)
+        if self._sampled and leaves(opt.init(self._init_params)):
+            raise ValueError(
+                "sampled participation carries no per-client optimizer "
+                "state between rounds (cohort lanes change owners every "
+                "round; clients re-initialize from the global model) — "
+                "use a stateless local optimizer (plain SGD)")
         self._rows = compression.n_rows(self._init_params)
         # The device-resident data path is the chunked path's, as in the
         # reference; the per-round backends always take host batches.
@@ -354,11 +457,19 @@ class Simulator:
         # (mesh_rounds._participation_weights).
         self._weights = w / torch.sum(w)
         self._sizes = w
+        # The raw sizes' float32 host twin: a sampled round gathers its
+        # cohort's row from it, the same float32 values as `_sizes`, so a
+        # K = M row equals the dense constant.
+        self._sizes_host = np.asarray(np.asarray(data_sizes), np.float32)
         self.scenario = (scenarios.get(scenario) if scenario is not None
                          else None)
         if faults is not None and faults.active:
             base = self.scenario or scenarios.get("uniform")
             self.scenario = base.replace(faults=faults)
+        if self._sampled and self.scenario is None:
+            # The cohort draws live on the scenario stream: promote to the
+            # neutral 'uniform' scenario so the stream exists.
+            self.scenario = scenarios.get("uniform")
         fm = self.scenario.faults if self.scenario is not None else None
         self._faults = fm if (fm is not None and fm.active) else None
         self._guard = self._quorum = self._quorum_policy = None
@@ -372,7 +483,8 @@ class Simulator:
             g = self._faults.guard_spec()
             # A guard that neither clips nor rejects does nothing.
             self._guard = None if (g[0] == float("inf") and not g[1]) else g
-            self._quorum = self._faults.resolve_quorum(fed.n_devices)
+            # Against the round's cohort size (K when sampled, M dense).
+            self._quorum = self._faults.resolve_quorum(self._lanes)
             if self._quorum is not None:
                 self._quorum_policy = self._faults.quorum_policy
             # A deadline_factor resolves against this simulator's nominal
@@ -385,7 +497,7 @@ class Simulator:
             # The batched round, also run_round's step on 'scan' (the
             # stacked state layout is the same).
             self._round_fn = mesh_rounds.build_fleet_round(
-                self.value_and_grad, opt, fed.n_devices,
+                self.value_and_grad, opt, self._lanes,
                 fed.compress_updates, noise, self._rows, guard=self._guard,
                 quorum=self._quorum_arg())
         if backend == "scan":
@@ -402,8 +514,13 @@ class Simulator:
         one shared dataset, the dataset is uploaded once and each chunk
         uploads only batch indices, gathered on the device (batch_from).
         Any other source goes up as host-stacked batches, one upload a
-        chunk (client.stack_chunk_batches)."""
-        if (its
+        chunk (client.stack_chunk_batches). A ClientDataPool is one shared
+        dataset."""
+        if hasattr(its, "client"):
+            self._data_dev = {k: _upload(v, self.device)
+                              for k, v in its.device_arrays().items()}
+            self._batch_from = its.batch_from
+        elif (its
                 and all(hasattr(it, "next_indices")
                         and hasattr(it, "device_arrays") for it in its)
                 and getattr(its[0], "data", None) is not None
@@ -417,7 +534,7 @@ class Simulator:
         envelope=True builds the Study's group chunk over the masked
         loss."""
         return mesh_rounds.build_fleet_chunk(
-            self.value_and_grad, self.opt, self.fed.n_devices,
+            self.value_and_grad, self.opt, self._lanes,
             self.fed.compress_updates, self._batch_from, self.noise,
             self._rows, guard=self._guard, quorum=self._quorum_arg(),
             envelope=envelope)
@@ -425,33 +542,38 @@ class Simulator:
     # -- state construction -------------------------------------------------
     def init(self, seed: Optional[int] = None) -> SimState:
         """A fresh run state at `seed` (default: fed.seed): replicated
-        client params/opt ('loop': the global model and M optimizer
-        states), the noise generator seeded with `seed`, round 0, clock 0,
-        and fresh data iterators (a simulator built on a list of live
-        iterators continues them where they are)."""
+        client params/opt (K cohort lanes when sampled, else M; 'loop': the
+        global model and M optimizer states), the noise generator seeded
+        with `seed`, round 0, clock 0, and fresh data iterators (a
+        simulator built on a list of live iterators continues them where
+        they are)."""
         seed = int(self.fed.seed if seed is None else seed)
         if self.backend == "loop":
             params = self._init_params
             opt_C: Any = tuple(self.opt.init(params)
                                for _ in range(self.fed.n_devices))
         else:
-            params = mesh_rounds.replicate_clients(
-                self._init_params, self.fed.n_devices)
+            params = mesh_rounds.replicate_clients(self._init_params,
+                                                   self._lanes)
             opt_C = self.opt.init(params)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
         return SimState(params_C=params, opt_C=opt_C, rng=gen.get_state(),
                         seed=seed)
 
-    def _make_iters(self, seed: int) -> list:
+    def _make_iters(self, seed: int):
         src = (self._data_src(seed) if callable(self._data_src)
                else self._data_src)
-        return list(src)
+        # A ClientDataPool is one lazy object, not a per-client list.
+        return src if hasattr(src, "client") else list(src)
 
     @staticmethod
-    def _snapshot_iters(iters) -> Optional[tuple]:
-        """The iterators' state() snapshots, or None when they have none
-        (such an iterator is taken to be stateless)."""
+    def _snapshot_iters(iters) -> Optional[Any]:
+        """The iterators' state() snapshots (a ClientDataPool's: its
+        touched clients only), or None when they have none (such an
+        iterator is taken to be stateless)."""
+        if hasattr(iters, "client"):
+            return iters.state()
         if all(hasattr(it, "state") and hasattr(it, "set_state")
                for it in iters):
             return tuple(it.state() for it in iters)
@@ -459,18 +581,24 @@ class Simulator:
 
     @staticmethod
     def _restore_iters(iters, snap) -> None:
+        if hasattr(iters, "client"):
+            iters.set_state(snap)
+            return
         for it, st in zip(iters, snap):
             it.set_state(st)
 
     def _materialize(self, state: SimState):
         """Live host-side streams positioned at `state`: (data iterators,
-        scenario stream or None)."""
+        scenario stream or None; a sampled simulator's stream draws its
+        cohorts too, and its snapshot carries the cohort generator)."""
         iters = self._make_iters(state.seed)
         if state.data is not None:
             self._restore_iters(iters, state.data)
         stream = None
         if self.scenario is not None:
-            stream = self.scenario.stream(self.pop, state.seed)
+            stream = self.scenario.stream(
+                self.pop, state.seed, cohort_size=self._cohort_draw,
+                cohort_weights=self._cohort_weights)
             if state.stream is not None:
                 stream.set_state(state.stream)
         return iters, stream
@@ -545,7 +673,9 @@ class Simulator:
         single-shot Eq. 6 otherwise) and the aggregation mask after the
         deadline cut (clients whose V*t_cp + t_cm exceeds the deadline stay
         in the clock mask but send nothing). The reference's float64 host
-        twin, row for row."""
+        twin, row for row. Under sampling too the realization is resolved
+        population-wide, so a cohort's gathered columns are exactly the
+        rows a dense run sees."""
         mask = np.asarray(chunk.mask, bool)
         if self._faults is not None:
             fm = self._faults
@@ -561,6 +691,62 @@ class Simulator:
             t_cm = delay.per_client_uplink_time(
                 self._update_bits(), self.wireless, self.pop.p, chunk.h)
         return mask, t_cm
+
+    @staticmethod
+    def _gather_real(real, cohort):
+        """A round's M-wide realization restricted to the cohort's columns.
+        The fault semantics (retransmission clocks, deadline cuts) resolve
+        M-wide FIRST, then are gathered: sampling selects who
+        participates, it never changes what would have happened to
+        them."""
+        return dataclasses.replace(
+            real,
+            mask=np.asarray(real.mask)[cohort],
+            clock_mask=np.asarray(real.clock_mask)[cohort],
+            h=np.asarray(real.h)[cohort],
+            attempts=(None if real.attempts is None
+                      else np.asarray(real.attempts)[cohort]),
+            h_att=(None if real.h_att is None
+                   else np.asarray(real.h_att)[cohort]))
+
+    def _select_cohorts(self, cands: np.ndarray, t_cm: np.ndarray,
+                        ) -> np.ndarray:
+        """Over-provisioned cohort selection: the K deadline-feasible-
+        fastest of each round's (K + spare) candidates, (R, K) from (R,
+        K + spare) candidates and the (R, M) effective uplink times.
+        Candidates rank by the float64 finish time V*t_cp + t_cm
+        (delay.finish_times), deadline-infeasible ones last and ties by
+        client index; the kept K come back sorted ascending (draw_cohort's
+        convention)."""
+        K = self._cohort
+        finish_all = delay.finish_times(
+            self._t_cp_clients, t_cm, self.fed.local_rounds)
+        finish = np.take_along_axis(finish_all, cands, axis=1)
+        infeas = (finish > self._deadline if self._deadline is not None
+                  else np.zeros(finish.shape, bool))
+        out = np.empty((cands.shape[0], K), np.int32)
+        for r in range(cands.shape[0]):
+            # lexsort: the LAST key is primary — feasible first, then
+            # fastest, ties by client id.
+            order = np.lexsort((cands[r], finish[r], infeas[r]))
+            out[r] = np.sort(cands[r][order[:K]])
+        return out
+
+    def _resolve_round(self, real, cohort=None):
+        """One round's realization after the M-wide fault resolution
+        (`_chunk_uplink`) and, when sampled, restricted to its cohort (the
+        K kept of K + spare candidates with cohort_spare): (real', its
+        per-client uplink times, the cohort or None)."""
+        mask, t_cm = self._chunk_uplink(real)
+        real = dataclasses.replace(real, mask=mask)
+        if cohort is not None:
+            if self._spare:
+                cohort = self._select_cohorts(
+                    np.asarray(cohort)[None],
+                    np.asarray(t_cm, np.float64)[None])[0]
+            real = self._gather_real(real, cohort)
+            t_cm = np.asarray(t_cm)[cohort]
+        return real, t_cm, cohort
 
     def _raise_if_diverged(self, history, start: int, snap,
                            finites) -> int:
@@ -589,19 +775,55 @@ class Simulator:
         return len(history)
 
     # -- the chunked driver -------------------------------------------------
+    def _stack_data(self, iters, n: int, cohorts=None):
+        """n rounds of data on this simulator's path: batch indices (n, C,
+        V, B) on the device-resident path, else host batches, leaves (n, C,
+        V, B, ...); C = K lanes when sampled (lane k of round r from client
+        cohorts[r, k]), else all M clients."""
+        V = self.fed.local_rounds
+        if cohorts is None:
+            return (stack_chunk_indices(iters, n, V)
+                    if self._data_dev is not None
+                    else stack_chunk_batches(iters, n, V))
+        if self._data_dev is not None:
+            return stack_cohort_indices(iters, cohorts, V)
+        return stack_batches([stack_cohort_batches(iters, c, V)
+                              for c in cohorts])
+
+    def _draw_cohorts(self, stream, n: int):
+        """A sampled chunk's host draws, in the reference's order: the
+        candidate cohorts (their own generator), then the chunk's
+        realization, resolved M-wide (`_chunk_uplink`), then with
+        cohort_spare the K kept of each round's candidates: (cohorts (n,
+        K), realization, mask (n, M), t_cm (n, M))."""
+        cands = stream.draw_cohorts(n)
+        chunk = stream.draw_chunk(n)
+        mask, t_cm = self._chunk_uplink(chunk)
+        cohorts = self._select_cohorts(cands, t_cm) if self._spare else cands
+        return cohorts, chunk, mask, t_cm
+
     def _chunk_inputs(self, iters, stream, n: int,
                       envelope: Optional[tuple] = None):
         """Host-side draws of one member's next n rounds: (the data — batch
         indices (n, C, V, B) on the device-resident path, else the host
         batches, leaves (n, C, V, B, ...) —, participation mask (n, C)
-        float32 or None, and the host dict of the float64 clock twin for
-        the records, or None without a scenario). With `envelope=(V_env,
-        B_env)` (a Study group) the draws are zero-padded to (n, C, V_env,
-        B_env, ...): no extra draw, so the iterators and the stream
-        advance exactly as in a run of this simulator alone."""
+        float32 or None, the host dict of the float64 clock twin for the
+        records, or None without a scenario, and a sampled chunk's (n, K)
+        float32 cohort sizes, one row a round, or None). With
+        `envelope=(V_env, B_env)` (a Study group) the draws are zero-padded
+        to (n, C, V_env, B_env, ...): no extra draw, so the iterators and
+        the stream advance exactly as in a run of this simulator alone.
+
+        A sampled chunk draws its cohorts and its realization before the
+        data (only the cohort's iterators advance), and everything below
+        the gather sees only the cohort's columns: mask, clock, bits and
+        attempts. That order makes K = M (and K + spare = M with spare
+        cohorts) the dense run."""
         V, b = self.fed.local_rounds, self.fed.batch_size
-        xs = (stack_chunk_indices(iters, n, V) if self._data_dev is not None
-              else stack_chunk_batches(iters, n, V))
+        cohorts = None
+        if self._sampled:
+            cohorts, chunk, mask_M, t_cm_M = self._draw_cohorts(stream, n)
+        xs = self._stack_data(iters, n, cohorts)
         if envelope is not None and tuple(envelope) != (V, b):
             def pad(a):
                 out = np.zeros(a.shape[:2] + tuple(envelope) + a.shape[4:],
@@ -611,16 +833,27 @@ class Simulator:
 
             xs = tree_map(pad, xs)
         if stream is None:
-            return xs, None, None
-        chunk = stream.draw_chunk(n)
-        mask, t_cm = self._chunk_uplink(chunk)
-        T_cm, T_cp = delay.chunk_round_times(self._t_cp_clients, t_cm,
-                                             chunk.clock_mask)
+            return xs, None, None, None
+        weights = None
+        if self._sampled:
+            g = lambda a: np.take_along_axis(  # noqa: E731
+                np.asarray(a), cohorts, axis=1)
+            mask, clock_mask, t_cm = (g(mask_M), g(chunk.clock_mask),
+                                      g(t_cm_M))
+            t_cp = np.take(self._t_cp_clients, cohorts)
+            attempts = None if chunk.attempts is None else g(chunk.attempts)
+            weights = np.take(self._sizes_host, cohorts)
+        else:
+            chunk = stream.draw_chunk(n)
+            mask, t_cm = self._chunk_uplink(chunk)
+            clock_mask, t_cp = chunk.clock_mask, self._t_cp_clients
+            attempts = chunk.attempts
+        T_cm, T_cp = delay.chunk_round_times(t_cp, t_cm, clock_mask)
         host = {"T_cm": T_cm, "T_cp": T_cp,
                 "n_participants": mask.sum(axis=1)}
         if self._faults is not None:
-            host["attempts"] = chunk.attempts.sum(axis=1)
-        return xs, mask.astype(np.float32), host
+            host["attempts"] = attempts.sum(axis=1)
+        return xs, mask.astype(np.float32), host, weights
 
     def _chunk_records(self, ys, host, n: int, r0: int, t0: float,
                        ) -> List[RoundRecord]:
@@ -660,13 +893,20 @@ class Simulator:
     def _rewind(self, mat, pre: tuple, t: int) -> None:
         """Reposition a member's host streams as if only the first t
         rounds of the chunk just drawn had been consumed: restore the
-        pre-chunk snapshots and replay t rounds of draws."""
+        pre-chunk snapshots and replay t rounds of draws (a sampled chunk's
+        in `_chunk_inputs`' order: cohorts, realization, data)."""
         iters, stream = mat
         data, stream_state = pre
+        if self._sampled:
+            stream.set_state(stream_state)
+            cohorts = self._draw_cohorts(stream, t)[0]
+            if data is not None:
+                self._restore_iters(iters, data)
+                self._stack_data(iters, t, cohorts)
+            return
         if data is not None:
             self._restore_iters(iters, data)
-            (stack_chunk_indices if self._data_dev is not None
-             else stack_chunk_batches)(iters, t, self.fed.local_rounds)
+            self._stack_data(iters, t)
         if stream is not None:
             stream.set_state(stream_state)
             stream.draw_chunk(t)
@@ -685,8 +925,10 @@ class Simulator:
         through it.
 
         The members are stacked on the client axis (S*C rows, members
-        major) and each chunk is ONE device call for all of them: one
-        index (and mask) upload in, one fetch of the round outputs out.
+        major; C = K lanes when sampled, each member with its own cohorts)
+        and each chunk is ONE device call for all of them: one index (and
+        mask, and with cohorts weights) upload in, one fetch of the round
+        outputs out.
         `evaluate(globals)` maps the
         stacked (S', ...) global models of the members still running to
         their eval dicts; it runs at each eval boundary (a multiple of
@@ -712,7 +954,7 @@ class Simulator:
         divergence (run() of one member, with the fault layer's
         divergence_guard) checks each chunk's losses and raises
         DivergenceError carrying the state before the chunk."""
-        C = self.fed.n_devices
+        C = self._lanes
         S = len(states)
         sims = list(sims) if sims is not None else [self] * S
         chunk_fn = self._chunk_fn if chunk_fn is None else chunk_fn
@@ -754,6 +996,10 @@ class Simulator:
             if self.scenario is not None:
                 mask = torch.from_numpy(np.concatenate(
                     [d[1] for d in drawn], axis=1)).to(self.device)
+            if self._sampled:
+                # (n, S, K): one row of each member's cohort sizes a round.
+                weights = torch.from_numpy(np.stack(
+                    [d[3] for d in drawn], axis=1)).to(self.device)
             params, opt_state, ys = chunk_fn(
                 params, opt_state, [gens[s] for s in active], weights,
                 data, idx, mask, env)
@@ -824,7 +1070,9 @@ class Simulator:
         """One communication round: (state', metrics dict). `real` is the
         scenario's realization of the round (drawn from the state's
         stream when omitted); giving one to a scenario-less simulator
-        raises. `t_cm_clients`, the reference's per-client uplink times
+        raises, and so does giving one to a sampled simulator (an M-wide
+        realization from outside has no cohort: the state's stream draws
+        both). `t_cm_clients`, the reference's per-client uplink times
         for its in-graph clock, is checked and not used: the port's round
         has no in-graph clock (the records take it from the host model,
         core/delay.py). 'scan' shares the batched round here. As in the
@@ -839,6 +1087,12 @@ class Simulator:
                 "this simulation has no scenario — the mask/channel inputs "
                 "would be silently ignored. Construct the Simulator with "
                 "scenario=... or drop the argument.")
+        if real is not None and self._sampled:
+            raise ValueError(
+                "run_round(real=...) is unsupported with sampled cohorts: "
+                "an externally supplied M-wide realization has no cohort "
+                "to condition on. Drop the argument (the state's stream "
+                "draws both) or run dense.")
         if t_cm_clients is not None and self.scenario is None:
             raise ValueError(
                 "run_round(t_cm_clients=...) was given uplink times but "
@@ -855,28 +1109,41 @@ class Simulator:
         mat = self._materialize(state)
         iters, stream = mat
         gen = self._generator(state)
+        cohort = None
         if self.scenario is not None and real is None:
+            if self._sampled:
+                cohort = stream.draw_cohort()
             real = stream.next_round()
-        if self._faults is not None and real is not None:
-            real = dataclasses.replace(real, mask=self._chunk_uplink(real)[0])
+        if real is not None:
+            real, _, cohort = self._resolve_round(real, cohort)
         params_C, opt_C, metrics = self._round(
-            state.params_C, state.opt_C, gen, iters, real)
+            state.params_C, state.opt_C, gen, iters, real, cohort)
         return self._state_at(state, params_C, opt_C, gen, mat,
                               state.round + 1, state.sim_time), metrics
 
-    def _round(self, params_C, opt_C, gen, iters, real):
+    def _round(self, params_C, opt_C, gen, iters, real, cohort=None):
         if self.backend == "loop":
             return self._round_loop(params_C, opt_C, gen, iters, real)
-        return self._round_batched(params_C, opt_C, gen, iters, real)
+        return self._round_batched(params_C, opt_C, gen, iters, real, cohort)
 
-    def _round_batched(self, params_C, opt_C, gen, iters, real):
+    def _round_batched(self, params_C, opt_C, gen, iters, real, cohort=None):
         """The stacked round (mesh_rounds.build_fleet_round, the chunk
-        path's step) on one upload of the round's host batches."""
+        path's step) on one upload of the round's host batches: every
+        client's, or a sampled round's cohort's (lane k from client
+        cohort[k], with that client's size)."""
+        V = self.fed.local_rounds
         batches = tree_map(lambda x: _upload(x, self.device),
-                           stack_client_batches(iters, self.fed.local_rounds))
+                           stack_client_batches(iters, V) if cohort is None
+                           else stack_cohort_batches(iters, cohort, V))
         mask = (None if real is None else torch.from_numpy(
             np.asarray(real.mask, np.float32)).to(self.device))
-        weights = self._weights if real is None else self._sizes
+        if real is None:
+            weights = self._weights
+        elif cohort is None:
+            weights = self._sizes
+        else:
+            weights = torch.from_numpy(
+                self._sizes_host[cohort][None]).to(self.device)
         params_C, opt_C, ys = self._round_fn(params_C, opt_C, [gen], weights,
                                              batches, mask)
         out = {"train_loss": ys["loss"][0]}  # a device scalar
@@ -998,20 +1265,24 @@ class Simulator:
         V = self.fed.local_rounds
         update_bits = self._update_bits()
         for k in range(1, max_rounds + 1):
-            real = n_attempts = None
+            real = n_attempts = cohort = None
             if stream is not None:
-                # The round's realization on the host, its Eq. 8 clock as
-                # the straggler max over the clients the server waits for,
-                # and the same realization to the round step.
-                real = stream.next_round()
-                mask, t_cm_clients = self._chunk_uplink(real)
-                real = dataclasses.replace(real, mask=mask)
+                # The round's realization on the host (a sampled round's
+                # cohort first, and the realization gathered to it), its
+                # Eq. 8 clock as the straggler max over the clients the
+                # server waits for, and the same realization to the step.
+                if self._sampled:
+                    cohort = stream.draw_cohort()
+                real, t_cm_clients, cohort = self._resolve_round(
+                    stream.next_round(), cohort)
                 if self._faults is not None:
                     n_attempts = int(real.attempts.sum())
+                t_cp = (self._t_cp_clients if cohort is None
+                        else self._t_cp_clients[cohort])
                 T_cm, T_cp = delay.masked_round_times(
-                    self._t_cp_clients, t_cm_clients, real.clock_mask)
+                    t_cp, t_cm_clients, real.clock_mask)
             params_C, opt_C, metrics = self._round(params_C, opt_C, gen,
-                                                   iters, real)
+                                                   iters, real, cohort)
             sim_time += delay.round_time(T_cm, T_cp, V,
                                          deadline=self._deadline)
             rej = metrics.get("rejected")

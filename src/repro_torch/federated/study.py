@@ -15,13 +15,15 @@ the frozen value form of the whole comparison:
     json.dump(result.to_json(), f)
 
 `run()` does not loop over arms. Arms are grouped by *shape signature*
-(model, client count M, dataset, partition and population draw,
-scenario, faults, lr, compression): everything the group's chunk
+(model, client count M, dataset, partition and population draw, the
+PopulationSpec and its cohorts, scenario, faults, lr, compression):
+everything the group's chunk
 function or its shared inputs depend on EXCEPT the per-arm (b, V) plan.
 Each group runs as ONE folded fleet over its (arm x seed) members, on
 the simulator's one driver (`Simulator._drive`, as `run_fleet`):
 
-  * the members are rows of the client axis (S*C rows, members major);
+  * the members are rows of the client axis (S*C rows, members major;
+    C = K lanes for sampled arms, each member with its own cohorts);
     arms with mixed (b, V) plans share one chunk through the **(V, b)
     envelope**: every member's batch indices are zero-padded to the
     group's (V_env, B_env) = (max V, max b), and per-row masks make the
@@ -79,8 +81,9 @@ PARAM_ATOL = 5e-4
 
 def _group_signature(spec: ExperimentSpec, fed) -> tuple:
     """Everything that shapes a group's chunk function or its shared
-    inputs (model, data, partition and population draw, scenario, the
-    effective FaultModel, backend, lr, compression) EXCEPT the per-arm (b, V)
+    inputs (model, data, partition and population draw, the PopulationSpec
+    with its cohorts, client sharding, scenario, the effective FaultModel,
+    backend, lr, compression) EXCEPT the per-arm (b, V)
     plan, which the envelope absorbs, and the plan constants (epsilon,
     nu, c) that only exist to derive it. The guard and quorum are built
     into the group's chunk, and the fault inputs (deadlines, attempts)
@@ -88,7 +91,8 @@ def _group_signature(spec: ExperimentSpec, fed) -> tuple:
     return (spec.model, spec.dataset, spec.n_train, spec.n_test, spec.alpha,
             spec.seed, spec.scenario, spec.effective_faults(),
             spec.heterogeneity, spec.compute, spec.wireless, spec.backend,
-            spec.with_eval, fed.n_devices, fed.lr, fed.compress_updates)
+            spec.with_eval, spec.population, spec.shard_clients,
+            fed.n_devices, fed.lr, fed.compress_updates)
 
 
 @dataclass
@@ -105,7 +109,7 @@ class _Member:
 
 def _member_env(sim: Simulator, V_env: int, B_env: int) -> dict:
     """The member's (V, b)-envelope masks (host numpy), repeated over its
-    C clients when the group stacks them (one row a client)."""
+    C client lanes when the group stacks them (one row a lane)."""
     V, b = sim.fed.local_rounds, sim.fed.batch_size
     v_mask = np.zeros(V_env, np.float32)
     v_mask[:V] = 1.0
@@ -130,7 +134,7 @@ def _run_group(members: List[_Member], max_rounds: int, eval_every: int,
     else:
         V_env = max(m.sim.fed.local_rounds for m in members)
         B_env = max(m.sim.fed.batch_size for m in members)
-    C = rep.fed.n_devices
+    C = rep._lanes
     envs = [_member_env(m.sim, V_env, B_env) for m in members]
     env = {k: torch.as_tensor(np.stack([e[k] for e in envs]),
                               device=rep.device).repeat_interleave(C, dim=0)
@@ -231,9 +235,8 @@ class StudyResult:
     groups: Tuple[Tuple[str, ...], ...]  # grouping report (labels/group)
     target_acc: Optional[float] = None
     max_sim_time: Optional[float] = None
-    # label -> cohort size K of sampled-participation arms; the port runs
-    # dense populations only, so every arm maps to None (the table's K
-    # column stays blank).
+    # label -> cohort size K of sampled-participation arms (None for a
+    # dense arm, whose K column stays blank).
     cohorts: Dict[str, Optional[int]] = dataclasses.field(
         default_factory=dict)
     # label -> asynchronous aggregation regime; None (synchronous) for
@@ -320,8 +323,9 @@ class StudyResult:
     def table(self) -> Tuple[str, List[tuple]]:
         """Paper-style per-arm rows:
         label,b,V,K,agg,rounds,mean_participants,overall_time_s,acc,
-        time_to_target,rounds_rejected,restarts — K blank and agg 'sync'
-        for the port's dense synchronous arms; time/acc as mean+-std
+        time_to_target,rounds_rejected,restarts — K the sampled cohort size
+        (blank for dense arms), agg 'sync' for the port's synchronous
+        arms; time/acc as mean+-std
         bands when the study ran several seeds; rounds_rejected/restarts
         are seed totals."""
         multi = len(self.seeds) > 1
@@ -597,7 +601,8 @@ class Study:
             groups=tuple(tuple(label for label, _, _ in groups[sig])
                          for sig in order),
             target_acc=self.target_acc, max_sim_time=self.max_sim_time,
-            cohorts={label: None for label, _ in self.arms},
+            cohorts={label: (c.K if (c := spec.cohort_spec()) is not None
+                             else None) for label, spec in self.arms},
             async_modes={label: None for label, _ in self.arms})
 
     def _bit_probe(self, group) -> None:

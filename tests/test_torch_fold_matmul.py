@@ -137,6 +137,29 @@ def test_phase3_times_every_long_k_product_of_the_main_path():
     assert set(paper.values()) == want
 
 
+def test_phase3_times_the_sampled_rounds_own_products():
+    """The `sampled_*` cases of chip_smoke.py's phase 3 are products of the
+    sampled path's local step (phase 19: compressed mnist_paper, K = 50
+    lanes of M = 10,000, at that population's plan), of exactly their
+    shape and layout, and each takes the route its class takes."""
+    spec = experiment.get("mnist_paper")
+    spec = spec.replace(
+        fed=dataclasses.replace(spec.fed, compress_updates=True),
+        population=experiment.PopulationSpec(
+            M=10_000, cohort=experiment.CohortSpec(K=50)))
+    b = spec.resolve_fed().batch_size
+    products = _products("mnist_cnn", b)
+    sampled = {k: v for k, v in _fold_cases().items()
+               if k.startswith("sampled_")}
+    assert set(sampled) == {"sampled_conv2_fwd", "sampled_conv2_wgrad",
+                            "sampled_conv1_wgrad"}
+    for name, case in sampled.items():
+        product = name.removeprefix("sampled_")
+        assert case == (50, *products[product]), name
+        assert ops.route_for(50, case[1], case[3], case[2]) in (
+            "tiles", "panel")
+
+
 def test_instances_are_the_kernel_sources():
     """ops.INSTANCES lists the .cu's FOLD_INSTANCES, in its id order."""
     src = ops.SOURCE.read_text()

@@ -55,6 +55,14 @@ def test_importing_every_module_leaves_jax_and_repro_out():
     assert {"repro_torch.federated.faults",
             "repro_torch.federated.scenarios",
             "repro_torch.federated.server"} <= set(MODULES)
+    # The sampled path's modules (ClientDataPool, partition_virtual, the
+    # cohort stacks, the cohort chunk, the sampled Simulator and spec).
+    assert {"repro_torch.data.pipeline", "repro_torch.federated.partition",
+            "repro_torch.federated.client",
+            "repro_torch.federated.mesh_rounds",
+            "repro_torch.federated.simulation",
+            "repro_torch.federated.experiment",
+            "repro_torch.federated.study"} <= set(MODULES)
 
 
 def test_no_source_imports_jax_or_repro():
@@ -74,10 +82,14 @@ def test_no_source_imports_jax_or_repro():
 
 def test_entry_points_default_to_cuda_and_never_fall_back():
     spec = experiment.get("mnist_smoke")
+    sampled = experiment.get("mnist_sampled")
     cfg = get_config("qwen2-0.5b", smoke=True)
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"
         assert spec.build().device.type == "cuda"
+        for backend in ("scan", "batched"):
+            assert sampled.replace(backend=backend).build(
+            ).device.type == "cuda"
         for backend in ("batched", "loop"):
             assert spec.replace(backend=backend).build().device.type == "cuda"
         sims = study.Study(arms=[("A", spec)]).build_sims()
@@ -91,6 +103,9 @@ def test_entry_points_default_to_cuda_and_never_fall_back():
         resolve_device("cuda")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         spec.build()
+    for backend in ("scan", "batched"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            sampled.replace(backend=backend).build()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         study.Study(arms=[("A", spec)], max_rounds=1).run()
     with pytest.raises(RuntimeError, match="device='cpu'"):
