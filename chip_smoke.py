@@ -19,9 +19,9 @@ Phases (each prints its own lines; any failure exits non-zero):
      of ops.HEAD_DIMS is missing;
   3. kernels: each kernel against its plain PyTorch version on the card,
      on several cases and at its main paths' shapes (quantize: exact
-     equality, timed at the FL shapes of phases 4, 10, 11, 18 (a loop
-     client's 1,628 rows) and 19 (a sampled round's 50 x 1,628), also on
-     the device alone (torch.profiler); flash
+     equality, timed at the FL shapes of phases 4, 10, 11, 18 and 20 (a
+     loop client's or an async event's 1,628 rows) and 19 (a sampled
+     round's 50 x 1,628), also on the device alone (torch.profiler); flash
      attention: atol 2e-6 in float32 (the CUDA-core kernel), 2e-2 in bf16
      (the wgmma + TMA kernel), at head_dims 32, 64, 80, 128 and 256, timed
      at the prefill shapes of qwen2-0.5b, gemma-7b and zamba2-2.7b's shared
@@ -30,7 +30,8 @@ Phases (each prints its own lines; any failure exits non-zero):
      max(1, max |plain|) against torch.matmul at the Fig. 2 MNIST Study
      group's product shapes and at compressed `mnist_paper`'s own (the
      `paper_*` cases, four of them at batch 1 as a loop client runs them,
-     the `loop_*` cases, and three at a sampled round's 50 lanes, the
+     the `loop_*` cases, and as an async event runs them at its plan, the
+     `async_*` cases, and three at a sampled round's 50 lanes, the
      `sampled_*` cases), the tiles and panel routes equal to the row route
      (the oracle) as int32, and its rows unmoved bit for bit by more rows
      and by zeros appended to K), then its time per launch beside the plain
@@ -178,11 +179,35 @@ Phases (each prints its own lines; any failure exits non-zero):
      share of a round (cohort draw, the M-wide realization and uplink,
      the index stack) and one profiled round (busy share, the fold
      matmul's ms a round, launches); none of (f) a gate.
+ 20. the asynchronous backend (the event queue): (a) compressed
+     `mnist_paper` at full width with `backend="async"`,
+     `AsyncSpec(buffer_size=5, staleness="poly")` under `stragglers`:
+     `run_events` for 11 events, then `run(max_rounds=6)`: one quantize
+     launch an event over one client's 1,628 rows, the fold matmul, no
+     other kernel; the host twin's pops equal the device's in every
+     chunk, the event clock monotone, each record's uplink bits a host
+     recomputation's, losses finite; (b) 7 events (mid-buffer),
+     `save_state`, `load_state` into a fresh simulator, on to 4
+     aggregations: bit for bit against 4 alone; (c) the sync limit:
+     uncompressed `mnist_paper`, buffer_size=10, staleness "constant",
+     `uniform`, 3 aggregations against 3 `scan` rounds within 1e-5 / 5e-4
+     (the gap and bit identity printed); (d) compressed `mnist_async` on
+     the card and on the CPU from the same model and noise: records
+     exact, losses and params within phase 5's bounds; (e) `fedasync`
+     (K=1, server_lr 0.5) runs and differs from `fedbuff` at K=1; (f) one
+     chunk's events under `torch.cuda.set_sync_debug_mode("error")`: no
+     host synchronisation inside; (g) steady-state s/event and
+     s/aggregation of (a) beside `scan`'s s/round of the same spec, the
+     host's draws an event (twin, dispatch draw, batch indices), a
+     profiled window (busy share, kernels by device time, the fold
+     matmul's and quantize's ms an event) and
+     `examples/async_vs_sync_torch.py --quick --scenario stragglers`
+     with its table; none of (g) a gate.
 
-Phases 10, 11, 12, 18, 19 and 17 run right after phase 5, in that order,
-phases 13-16 after phase 9; quantize's `launches` in the JSON line are
-those of phases 4, 10, 11, 12 (a, b, c's guarded run and d), 17 (b), 18
-and 19, the fold matmul's those of the same FL paths and of the
+Phases 10, 11, 12, 18, 19, 20 and 17 run right after phase 5, in that
+order, phases 13-16 after phase 9; quantize's `launches` in the JSON line
+are those of phases 4, 10, 11, 12 (a, b, c's guarded run and d), 17 (b),
+18, 19 and 20, the fold matmul's those of the same FL paths and of the
 quickstart twin and 17 (a, c), flash attention's
 those of phases 6, 13 and 15 (24 + 28 + 9). The last lines are the
 kernels' JSON record, the card's name and power limit, and
@@ -462,8 +487,9 @@ def quantize_cases(dev):
     # The FL paths' shapes, one launch a round: mnist_paper's 10 clients x
     # 1,628 rows of 1024, cifar_paper's 10 x 2,110, and a fleet of 4
     # mnist_paper runs, 4 x 10 x 1,628; then one launch a participating
-    # client on the loop backend (phase 18): 1,628 rows; and a sampled
-    # round's cohort of 50 lanes (phase 19): 50 x 1,628.
+    # client on the loop backend (phase 18) and one an arrival event on the
+    # async backend (phase 20): 1,628 rows; and a sampled round's cohort of
+    # 50 lanes (phase 19): 50 x 1,628.
     for name, rows in QUANTIZE_SHAPES.items():
         cases[name] = torch.randn(rows, 1024, generator=g) * 1e-3
     return {k: v.to(dev) for k, v in cases.items()}
@@ -529,9 +555,11 @@ def phase_quantize_kernel(dev, card):
 # clients of fc1's 1.6M weights (weights broadcast over 6 members), and a
 # ragged case; then the main path's own: the 8 products of a compressed
 # `mnist_paper` local step (phase 4: 10 clients, b* = 16) with K >= 512,
-# four of them at batch 1, a client of the loop backend (phase 18), and
-# three at a sampled round's 50 lanes (phase 19: M = 10,000, whose plan
-# gives b* = 32, so conv2 sees 32 x 196 positions).
+# four of them at batch 1, a client of the loop backend (phase 18), the
+# same four at an async event's batch 1 (phase 20: under `stragglers` the
+# plan gives b* = 8, so conv2 sees 8 x 196 positions), and three at a
+# sampled round's 50 lanes (phase 19: M = 10,000, whose plan gives b* =
+# 32, so conv2 sees 32 x 196 positions).
 # layout: "nn" both row-major, "tn" A transposed, "nt" B transposed, "ones"
 # A a broadcast row of ones, "wbc" A one row a batch entry, broadcast.
 FOLD_CASES = {
@@ -556,6 +584,10 @@ FOLD_CASES = {
     "loop_conv2_wgrad": (1, 800, 3136, 64, "tn"),
     "loop_fc1_fwd": (1, 16, 3136, 512, "nn"),
     "loop_conv1_wgrad": (1, 25, 12544, 32, "tn"),
+    "async_conv2_fwd": (1, 1568, 800, 64, "nn"),
+    "async_conv2_wgrad": (1, 800, 1568, 64, "tn"),
+    "async_fc1_fwd": (1, 8, 3136, 512, "nn"),
+    "async_conv1_wgrad": (1, 25, 6272, 32, "tn"),
     "sampled_conv2_fwd": (50, 6272, 800, 64, "nn"),
     "sampled_conv2_wgrad": (50, 800, 6272, 64, "tn"),
     "sampled_conv1_wgrad": (50, 25, 25088, 32, "tn"),
@@ -2085,6 +2117,344 @@ def phase_sampled_cost(counters, card, scale, dense):
     return launches
 
 
+# -- the asynchronous backend (phase 20) -------------------------------------------
+
+# (a), (b), (f), (g): compressed mnist_paper on the event queue under
+# 'stragglers', a buffer of ASYNC_K updates an aggregation, polynomial
+# staleness weights; (a) runs ASYNC_EVENTS events, then ASYNC_AGGS
+# aggregations; (b) stops after ASYNC_MID events (odd: mid-buffer).
+ASYNC_K, ASYNC_EVENTS, ASYNC_AGGS, ASYNC_MID = 5, 11, 6, 7
+# (g): timed chunks of one aggregation each, after ASYNC_WARM of warm-up.
+ASYNC_TIMED_AGGS, ASYNC_WARM = 4, 2
+
+
+def async_paper_spec(**kw):
+    """Compressed mnist_paper on the event queue (phase 20 (a))."""
+    from repro_torch.federated.events import AsyncSpec
+    return compressed_spec("mnist_paper").replace(
+        scenario="stragglers", backend="async",
+        async_spec=AsyncSpec(buffer_size=ASYNC_K, staleness="poly"), **kw)
+
+
+def _watch_chunks(sim):
+    """Record every chunk `sim` checks against its twin: a list that
+    fills with (the device's pops, the twin's pops, the twin's events)."""
+    seen, check = [], sim._async_records
+
+    def watched(ys, evs, n_ev, r0, bits_acc):
+        seen.append(([int(c) for c in ys["client"][:n_ev]],
+                     [e.client for e in evs], list(evs)))
+        return check(ys, evs, n_ev, r0, bits_acc)
+
+    sim._async_records = watched
+    return seen
+
+
+def _host_bits(evs, bits):
+    """Each aggregation's uplink bits recomputed on the host from the
+    twin's events: one compressed update a kept arrival since the last
+    aggregation."""
+    out, acc = [], 0.0
+    for e in evs:
+        acc += 0.0 if e.dropped else bits
+        if e.aggregated:
+            out.append(acc)
+            acc = 0.0
+    return out
+
+
+def phase_async(counters, card):
+    """20 (a): compressed mnist_paper on the event queue: run_events, then
+    run; one quantize launch an event over one client's rows, the twin's
+    pops equal the device's in every chunk, the event clock monotone, the
+    uplink bits a host recomputation's, finite losses."""
+    from repro_torch.federated import compression
+    from repro_torch.utils.tree import leaves
+    import torch
+    spec = async_paper_spec()
+    plan = spec.resolve_plan()
+    print(f"[async] (a) mnist_paper on the event queue: scenario "
+          f"{spec.scenario}, AsyncSpec(buffer_size={ASYNC_K}, "
+          f"staleness='poly'), plan b*={plan.b} V={plan.V}, compressed",
+          flush=True)
+    sim = _on_card(spec.build(), "async mnist_paper")
+    seen = _watch_chunks(sim)
+    state = sim.init()
+    rows = compression.n_rows(sim.params(state))
+    bits = compression.compressed_bits(sim.params(state))
+
+    def drive():
+        st, first = sim.run_events(state, ASYNC_EVENTS)
+        st, res = sim.run(st, max_rounds=ASYNC_AGGS, eval_every=3)
+        return st, first + res.history
+
+    t0 = time.perf_counter()
+    ((st, hist), q_rows), launches = _launched(
+        counters, lambda: _quantize_rows(drive))
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    evs = [e for _, _, chunk in seen for e in chunk]
+    times = [r.sim_time for r in hist]
+    pops_ok = all(dev == twin for dev, twin, _ in seen)
+    for r in hist:
+        print(f"[async] aggregation {r.round}: sim_time={r.sim_time:.6f}s "
+              f"train_loss={r.train_loss:.6f} uplink_bits="
+              f"{r.uplink_bits:.0f}"
+              + (f" test_acc={r.test_acc:.4f}" if r.test_acc is not None
+                 else ""))
+    print(f"[async] (a) {st.event} events, {len(hist)} aggregations in "
+          f"{elapsed:.3f} s (warm-up included), {len(seen)} chunks, device "
+          f"pops equal the twin's in every chunk {pops_ok}, launches "
+          f"{launches}, quantize rows {sorted(set(q_rows))}", flush=True)
+    if not pops_ok or not seen:
+        raise SystemExit("the async twin disagrees with the device's pops")
+    if (launches["quantize"] != st.event or len(q_rows) != st.event
+            or set(q_rows) != {rows}):
+        raise SystemExit(f"expected one quantize launch of {rows} rows an "
+                         f"event ({st.event}), got {q_rows}")
+    others = {k: n for k, n in launches.items()
+              if k not in FL_KERNELS and n}
+    if others or not launches["fold_matmul"]:
+        raise SystemExit(f"the async path launched other kernels, or not "
+                         f"the fold matmul: {launches}")
+    if times != sorted(times) or len(hist) < ASYNC_AGGS:
+        raise SystemExit(f"the event clock is not monotone: {times}")
+    if [r.uplink_bits for r in hist] != _host_bits(evs, bits):
+        raise SystemExit("the async records' uplink bits differ from the "
+                         "host's recomputation")
+    if not all(math.isfinite(r.train_loss) for r in hist) or not all(
+            bool(torch.isfinite(p).all()) for p in leaves(sim.params(st))):
+        raise SystemExit("non-finite loss or params on the async path")
+    return launches, (sim, st)
+
+
+def phase_async_checkpoint(counters):
+    """20 (b): ASYNC_MID events (mid-buffer), save_state, load_state into
+    a fresh simulator and on to 4 aggregations: params, carry and records
+    bit for bit against 4 aggregations alone."""
+    import tempfile
+    from repro_torch.federated.simulation import load_state, save_state
+    spec = async_paper_spec()
+
+    def both():
+        whole = spec.build()
+        w_st, w_res = whole.run(whole.init(3), max_rounds=4)
+        first = spec.build()
+        mid, head = first.run_events(first.init(3), ASYNC_MID)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = str(Path(tmp) / "async.pkl")
+            save_state(path, mid)
+            fresh = spec.build()
+            restored = load_state(path, like=fresh.init())
+        end, tail = fresh.run(restored, max_rounds=4 - len(head))
+        return (whole, w_st, w_res.history), (fresh, end,
+                                              head + tail.history), mid
+
+    (a, b, mid), launches = _launched(counters, both)
+    # run_events evaluates nothing, so test_acc is left out.
+    fields = RECORD_FIELDS + ("train_loss",)
+    same = (_params_same((a[0].params(a[1]), a[1].async_c),
+                         (b[0].params(b[1]), b[1].async_c))
+            and [[getattr(r, f) for f in fields] for r in a[2]]
+            == [[getattr(r, f) for f in fields] for r in b[2]])
+    print(f"[async] (b) {ASYNC_MID} events ({int(mid.async_c['cnt'])} "
+          f"updates in the buffer), save_state, load_state into a fresh "
+          f"simulator, on to 4 aggregations: params, carry and records bit "
+          f"for bit against 4 aggregations alone {same}; launches "
+          f"{launches}", flush=True)
+    if not same or int(mid.async_c["cnt"]) == 0:
+        raise SystemExit("the mid-buffer checkpoint does not resume bit for "
+                         "bit")
+    return launches
+
+
+def phase_async_sync_limit(counters):
+    """20 (c): uncompressed mnist_paper under 'uniform', AsyncSpec(
+    buffer_size=M, staleness='constant'): 3 aggregations against 3 scan
+    rounds, losses within 1e-5 relative and params within 5e-4."""
+    from repro_torch.federated import experiment
+    from repro_torch.federated.events import AsyncSpec
+    base = experiment.get("mnist_paper").replace(scenario="uniform")
+    M = base.fed.n_devices
+    a_spec = base.replace(backend="async", async_spec=AsyncSpec(
+        buffer_size=M, staleness="constant"))
+    out = {}
+    for name, spec in (("async", a_spec), ("scan", base)):
+        sim = _on_card(spec.build(), f"sync-limit {name}")
+        (_, out[name]), launches = _launched(counters, lambda: sim.run(
+            sim.init(), max_rounds=3, eval_every=3))
+        _check_uncompressed(f"async-sync-limit {name}", launches)
+    a, s = out["async"], out["scan"]
+    loss = max(abs(x.train_loss - y.train_loss) / abs(y.train_loss)
+               for x, y in zip(a.history, s.history))
+    param = _params_gap(a.params, s.params)
+    bits = _params_same(a.params, s.params)
+    print(f"[async] (c) sync limit (K = M = {M}, constant, uniform, "
+          f"uncompressed): 3 aggregations against 3 scan rounds: max rel "
+          f"loss gap {loss:.3g} (tol {FLEET_LOSS_RTOL:g}), params gap "
+          f"{param:.3g} (tol {FLEET_PARAM_ATOL:g}), bit for bit {bits}; "
+          f"participants {[r.n_participants for r in a.history]}; event "
+          f"clock {[r.sim_time for r in a.history]} against Eq. 8's "
+          f"{[r.sim_time for r in s.history]}", flush=True)
+    if loss > FLEET_LOSS_RTOL or param > FLEET_PARAM_ATOL:
+        raise SystemExit("the async sync limit breaks its bounds against "
+                         "scan")
+    return launches
+
+
+def phase_async_reference(counters):
+    """20 (d): compressed mnist_async on the card and on the CPU from the
+    same model and quantizer noise: records exact, losses and params
+    within phase 5's bounds."""
+    import torch
+    from repro_torch.federated import experiment
+    from repro_torch.kernels.quantize import ref
+    from repro_torch.utils.tree import tree_map
+    spec = experiment.get("mnist_async")
+    spec = spec.replace(fed=dataclasses.replace(spec.fed,
+                                                compress_updates=True))
+    out, launches = {}, None
+    for d in ("cuda", "cpu"):
+        noise_gen = torch.Generator().manual_seed(7)
+
+        def noise(_generator, shape, d=d, noise_gen=noise_gen):
+            return ref.stochastic_noise(noise_gen, shape).to(d)
+
+        sim = spec.build(device=d, noise=noise)
+        (_, out[d]), n = _launched(counters, lambda: sim.run(
+            sim.init(), max_rounds=4, eval_every=2))
+        launches = n if d == "cuda" else launches
+    card_res = out["cuda"]
+    out["cuda"] = dataclasses.replace(card_res, params=tree_map(
+        lambda x: x.cpu(), card_res.params))
+    exact, loss, param, same = _gaps(out["cuda"], out["cpu"])
+    print(f"[async] (d) mnist_async cuda vs cpu, 4 aggregations: records "
+          f"exact {exact}, max rel loss gap {loss:.2e}, max param gap "
+          f"{param:.2e}, bit for bit {same}; card launches {launches}",
+          flush=True)
+    if not exact or loss > 1e-5 or param > 5e-4:
+        raise SystemExit("the card's async run disagrees with the CPU's")
+    return launches
+
+
+def phase_async_fedasync(counters):
+    """20 (e): fedasync (K = 1, server_lr 0.5) runs and differs from
+    fedbuff at K = 1."""
+    from repro_torch.federated import experiment
+    from repro_torch.federated.events import AsyncSpec
+    base = experiment.get("mnist_async")
+    res, fl_launches = {}, []
+    for mode, lr in (("fedbuff", 1.0), ("fedasync", 0.5)):
+        sim = base.replace(async_spec=AsyncSpec(
+            buffer_size=1, mode=mode, server_lr=lr)).build()
+        (_, res[mode]), launches = _launched(counters, lambda: sim.run(
+            sim.init(), max_rounds=4, eval_every=4))
+        _check_uncompressed(f"async {mode}", launches)
+        fl_launches.append(launches)
+    gap = _params_gap(res["fedbuff"].params, res["fedasync"].params)
+    finite = all(math.isfinite(r.train_loss) for m in res.values()
+                 for r in m.history)
+    print(f"[async] (e) fedasync (K=1, server_lr 0.5) against fedbuff "
+          f"(K=1), 4 aggregations each: params gap {gap:.3g}, losses "
+          f"finite {finite}", flush=True)
+    if not gap > 0 or not finite:
+        raise SystemExit("fedasync does not differ from fedbuff, or is not "
+                         "finite")
+    return fl_launches
+
+
+def phase_async_no_sync(paper_async):
+    """20 (f): one chunk's events under torch.cuda.set_sync_debug_mode(
+    'error'): the inputs go up before it and its one fetch comes after."""
+    import torch
+    from repro_torch.federated.simulation import fetch_columns
+    sim, state = paper_async
+    state, mat, gen, twin, _ = sim._async_begin(state)
+    xs, evs, n = sim._async_chunk_inputs(mat[0], twin, mat[1],
+                                         stop_events=2 * ASYNC_K)
+    inputs = {"t_svc": torch.from_numpy(xs["t_svc"]).cuda(),
+              "drop_next": torch.from_numpy(xs["drop_next"]).cuda(),
+              "idx": torch.from_numpy(xs["idx"]).long().cuda()}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = sim._chunk_fn(state.params_C, state.opt_C, gen, state.async_c,
+                            sim._sizes, sim._data_dev, inputs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    ys = fetch_columns(out[3])
+    ok = list(ys["client"].astype(int)) == [e.client for e in evs]
+    print(f"[async] (f) {n} events of one chunk under "
+          f"set_sync_debug_mode('error'): no host synchronisation inside; "
+          f"its one fetch's pops equal the twin's {ok}", flush=True)
+    if not ok:
+        raise SystemExit("the no-sync chunk's pops differ from the twin's")
+
+
+def phase_async_cost(counters, card, paper):
+    """20 (g): steady-state s/event and s/aggregation of (a)'s spec beside
+    scan's s/round of the same spec, the host's draws an event, a
+    profiled window of 2 aggregations, and the async-vs-sync example
+    twin's quick table (none a gate)."""
+    import torch
+    spec = async_paper_spec(with_eval=False)
+    sim = _on_card(spec.build(), "async cost")
+    state, _ = sim.run(sim.init(), max_rounds=ASYNC_WARM)
+    spans, n_ev = [], []
+    for _ in range(ASYNC_TIMED_AGGS):
+        e0 = state.event
+        t0 = time.perf_counter()
+        state, _ = sim.run(state, max_rounds=1)
+        spans.append(time.perf_counter() - t0)
+        n_ev.append(state.event - e0)
+    scan = _on_card(spec.replace(backend="scan", async_spec=None).build(),
+                    "scan cost")
+    _, s_round, s_runs = _steady(scan, scan.init())
+    print(f"[async] (g) steady state on {card}: {sum(spans) / sum(n_ev)!r} "
+          f"s per event, {statistics.median(spans)!r} s per aggregation "
+          f"(median of {ASYNC_TIMED_AGGS}: {spans!r}, events {n_ev}, no "
+          f"eval); scan {s_round!r} s per round of the same spec (chunks "
+          f"{s_runs!r}; phase 4's scenario-less mnist_paper "
+          f"{paper['s_per_round']!r})", flush=True)
+    host = []
+    for _ in range(5):
+        _, mat, _, twin, _ = sim._async_begin(state)
+        t0 = time.perf_counter()
+        _, _, n = sim._async_chunk_inputs(mat[0], twin, mat[1], stop_aggs=1)
+        host.append((time.perf_counter() - t0) / n)
+    print(f"[async] (g) the host's draws an event (twin step, M-wide "
+          f"dispatch draw, the client's batch indices): "
+          f"{statistics.median(host)!r} s, "
+          f"{statistics.median(host) * sum(n_ev) / sum(spans):.1%} of an "
+          "event", flush=True)
+    for ops in counters.values():
+        ops.launches = 0
+    (end, _), wall, busy, top = profiled(lambda: sim.run(state, max_rounds=2))
+    launches = {k: ops.launches for k, ops in counters.items()}
+    events = end.event - state.event
+    print(f"[async] (g) profiled 2 aggregations ({events} events) on {card}: "
+          f"wall {wall:.4f} s, device busy {busy:.4f} s ({busy / wall:.1%}; "
+          f"idle {1 - busy / wall:.1%}), launches {launches}, profiler on",
+          flush=True)
+    for kname, sec in top[:6]:
+        print(f"[async]   {sec / events * 1e3:9.3f} ms/event {sec / busy:6.1%}"
+              f"  {kname[:90]}")
+    fold = sum(s for kname, s in top if "::fold_" in kname)
+    quant = sum(s for kname, s in top if "quantize_rows" in kname)
+    print(f"[async]   fold matmul {fold / events * 1e3:.3f} ms/event "
+          f"({fold / busy:.1%}), quantize {quant / events * 1e3:.4f} "
+          f"ms/event ({quant / busy:.1%})", flush=True)
+    example = _load_example("async_vs_sync_torch")
+    t0 = time.perf_counter()
+    _, ex_launches = _launched(counters, lambda: example.main(
+        ["--quick", "--scenario", "stragglers"]))
+    torch.cuda.synchronize()
+    print(f"[async] (g) examples/async_vs_sync_torch.py --quick --scenario "
+          f"stragglers on the card: {time.perf_counter() - t0:.2f} s, "
+          f"launches {ex_launches}", flush=True)
+    return [launches, ex_launches]
+
+
 # -- the Study: DEFL vs FedAvg vs Rand (phase 17) ------------------------------------
 
 # (a): the twin's Fig. 2 comparison, one scenario, FIG2_SEEDS seeds, up to
@@ -2820,6 +3190,17 @@ def main() -> int:
     fl_launches.append(phase_sampled_reference(counters))
     fl_launches.append(phase_sampled_cost(counters, card, scale, dense))
     del scale, dense
+
+    # -- 20. the asynchronous backend: the event queue --------------------------
+    launches, paper_async = phase_async(counters, card)
+    fl_launches.append(launches)
+    fl_launches.append(phase_async_checkpoint(counters))
+    fl_launches.append(phase_async_sync_limit(counters))
+    fl_launches.append(phase_async_reference(counters))
+    fl_launches.extend(phase_async_fedasync(counters))
+    phase_async_no_sync(paper_async)
+    fl_launches.extend(phase_async_cost(counters, card, paper))
+    del paper_async
 
     # -- 17. the Study: DEFL vs FedAvg vs Rand -------------------------------
     fig2, fig2_launches = phase_fig2(counters, card)

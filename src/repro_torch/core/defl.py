@@ -5,9 +5,8 @@ Ties together the delay models (core/delay.py) and the KKT solution
 (b*, theta*, V*) plus the predicted round/overall times. Copy of
 `make_plan` (with partial participation and cohorts), its batched form
 `make_plan_batch` over `PlanRequest`s (the Study's `plans()`),
-`deadline_plan`, `plan_to_fedconfig` and `fixed_plan` of
-repro/core/defl.py (the asynchronous planner serves a part of the
-reference the port has not taken up yet).
+`deadline_plan`, `async_plan` (the plan of the asynchronous backend),
+`plan_to_fedconfig` and `fixed_plan` of repro/core/defl.py.
 """
 from __future__ import annotations
 
@@ -211,6 +210,83 @@ def deadline_plan(
         T_cp=sol.T_cp,
         T_round=min(deadline, sol.T_round),
         overall_pred=sol.H * min(deadline, sol.T_round),
+        update_bits=update_bits, solution=sol, problem=prob)
+
+
+def async_plan(
+    fed: FedConfig,
+    pop: delay.DevicePopulation,
+    update_bits: float,
+    buffer_size: int,
+    wireless: Optional[WirelessConfig] = None,
+    b_max: float = 64.0,
+) -> DEFLPlan:
+    """Alg. 1 re-derived for buffered asynchronous aggregation
+    (backend='async', events.AsyncSpec(buffer_size=K)).
+
+    Two terms of the synchronous objective change:
+
+      * Eq. 8's round time is a straggler MAX (T_cm + nu alpha T_cp at
+        the slowest device). Under ack-at-aggregation every accepted
+        client is re-dispatched at an aggregation instant, so in steady
+        state client m contributes updates as a renewal process at rate
+        1/s_m with service span s_m = V t_cp_m + t_cm_m. The buffer
+        fills after K arrivals from the pooled process: the expected
+        aggregation period is T_agg = K / sum_m (1/s_m) — K over the
+        HARMONIC sum of client spans. A straggler hurts only in
+        proportion to its rate share, not as a hard round floor.
+      * Eq. 12's effective M is the number of updates averaged per
+        aggregation. Asynchronously that is the buffer size K — the
+        expected concurrency replaces the synchronous cohort M.
+
+    J(b, alpha) = H(b, alpha; M=K) * T_agg(b, alpha) has per-client
+    feasibility steps baked into neither term, but H's M-dependence and
+    T_agg's harmonic pooling make the objective non-smooth in K, so —
+    like `deadline_plan` — this sweeps the exact quantized decision
+    space (b in {2^n} up to b_max x alpha on a log grid, alpha >=
+    1/nu so V >= 1) rather than solving KKT conditions. The staleness
+    discount is a second-order effect on H (weights are normalized per
+    fill) and is not modeled.
+
+    Returns a DEFLPlan whose T_round/overall_pred are the async
+    T_agg / H*T_agg; `problem.M` records K (method 'async_grid').
+    """
+    wireless = wireless or WirelessConfig()
+    if fed.compress_updates:
+        update_bits = update_bits / 4.0
+    t_cm_m = delay.per_client_uplink_time(update_bits, wireless, pop.p, pop.h)
+    slopes = np.asarray(pop.G, np.float64) / np.asarray(pop.f, np.float64)
+    K = int(buffer_size)
+    if not 1 <= K <= slopes.size:
+        raise ValueError(
+            f"buffer_size must be in [1, M={slopes.size}], got {K}")
+
+    n_pow = max(int(np.floor(np.log2(b_max))), 0)
+    bs = 2.0 ** np.arange(0, n_pow + 1)
+    als = np.geomspace(1.0 / fed.nu, 20.0, 96)
+
+    best, best_J = None, np.inf
+    for b in bs:
+        for alpha in als:
+            V = max(int(round(fed.nu * alpha)), 1)
+            spans = V * slopes * b + t_cm_m  # per-client service span s_m
+            T_agg = K / float(np.sum(1.0 / spans))
+            H = kkt.communication_rounds_alpha(
+                b, alpha, K, fed.epsilon, fed.nu, fed.c)
+            J = H * T_agg
+            if J < best_J:
+                best, best_J = (float(b), float(alpha), float(T_agg)), J
+    b, alpha, T_agg = best
+    T_cm = float(np.max(t_cm_m))
+    g = float(max(pop.G / pop.f))
+    prob = kkt.DelayProblem(
+        T_cm=T_cm, g=g, M=K, eps=fed.epsilon, nu=fed.nu, c=fed.c)
+    sol = kkt.evaluate(prob, b, alpha, method="async_grid")
+    return DEFLPlan(
+        b=int(sol.b), theta=sol.theta, V=sol.V, H_pred=sol.H, T_cm=T_cm,
+        T_cp=sol.T_cp,
+        T_round=T_agg,
+        overall_pred=sol.H * T_agg,
         update_bits=update_bits, solution=sol, problem=prob)
 
 

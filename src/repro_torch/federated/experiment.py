@@ -13,10 +13,12 @@ faults, wireless, plan-or-fed — with `build()` materializing the
     loop = spec.replace(backend="loop").build()   # the per-client oracle
     big = experiment.get("mnist_paper").replace(
         population=PopulationSpec(M=10_000, cohort=CohortSpec(K=50)))
+    asim = experiment.get("mnist_async").build()  # the event queue
+    state, records = asim.run_events(asim.init(), events=11)
 
-The reference's fields for traces, asynchronous aggregation
-(backend='async' and async_spec) and the kernel implementation switch
-are not here: the port runs none of them yet (ROADMAP.md, queue 1).
+The reference's fields for traces and the kernel implementation switch
+are not here: the port runs no traces yet (ROADMAP.md, queue 1), and it
+picks a kernel's form by the tensor's device.
 
 The plan, the data, the partition and the device population are the
 reference's, value for value (numpy copies of its numpy code).
@@ -38,6 +40,7 @@ from repro_torch.data.pipeline import BatchIterator, ClientDataPool
 from repro_torch.data.synthetic import make_cifar_like, make_mnist_like
 from repro_torch.device import resolve_device
 from repro_torch.federated import scenarios
+from repro_torch.federated.events import AsyncSpec
 from repro_torch.federated.faults import FaultModel
 from repro_torch.federated.partition import (partition_dirichlet,
                                              partition_sizes,
@@ -179,9 +182,15 @@ class ExperimentSpec:
                    | 'numerical' (kkt.solve).
     batch_cap      cap applied to a planned b* (paper §VI-B); None
                    disables it.
-    backend        'scan' (default) | 'batched' | 'loop' (simulation.py's
-                   module docstring); 'async' is not ported yet.
+    backend        'scan' (default) | 'batched' | 'loop' | 'async'
+                   (simulation.py's module docstring).
     with_eval      wire the test-set accuracy eval into the Simulator.
+    async_spec     events.AsyncSpec for backend='async': buffered
+                   staleness-weighted aggregation over the device-side
+                   event queue. Requires backend='async' (and vice versa).
+                   Mutually exclusive with sampled participation
+                   (population.cohort), shard_clients and the quorum and
+                   update-norm fault guards; the errors name the fields.
     """
 
     fed: FedConfig = FedConfig()
@@ -204,16 +213,51 @@ class ExperimentSpec:
     backend: str = "scan"
     with_eval: bool = True
     label: str = ""
+    async_spec: Optional[AsyncSpec] = None
 
     def __post_init__(self):
-        if self.backend == "async":
-            raise ValueError(
-                "ExperimentSpec: backend='async' (the event queue) is not "
-                "ported yet: ROADMAP.md, queue 1, item 12")
         if self.backend not in BACKENDS:
             raise ValueError(
                 f"ExperimentSpec: unknown backend {self.backend!r}; "
                 f"expected one of {BACKENDS}")
+        # The knobs that exclude each other fail here, naming the fields,
+        # before any build() cost is paid (the reference's checks).
+        if self.backend == "async" and self.async_spec is None:
+            raise ValueError(
+                "ExperimentSpec: backend='async' requires async_spec="
+                "AsyncSpec(...) (fields backend, async_spec)")
+        if self.async_spec is not None and self.backend != "async":
+            raise ValueError(
+                f"ExperimentSpec: async_spec is set but backend="
+                f"{self.backend!r}; asynchronous aggregation requires "
+                "backend='async' (fields backend, async_spec)")
+        if self.backend != "async":
+            return
+        if self.population is not None and self.population.cohort is not None:
+            raise ValueError(
+                "ExperimentSpec: backend='async' is incompatible with "
+                "sampled participation (fields backend, population.cohort) "
+                "— the event queue tracks every client; use a dense "
+                "PopulationSpec(M) or drop the CohortSpec")
+        if self.shard_clients:
+            raise ValueError(
+                "ExperimentSpec: backend='async' is incompatible with "
+                "client sharding (fields backend, shard_clients) — the "
+                "event queue pops one client per step, which does not "
+                "shard across devices")
+        fm = self.effective_faults()
+        if fm is not None and fm.min_quorum is not None:
+            raise ValueError(
+                "ExperimentSpec: backend='async' is incompatible with "
+                "quorum gating (fields backend, faults.min_quorum) — "
+                "rounds are buffer fills, not synchronized cohorts; use "
+                "AsyncSpec.buffer_size to set the fill threshold")
+        if fm is not None and fm.max_update_norm is not None:
+            raise ValueError(
+                "ExperimentSpec: backend='async' is incompatible with "
+                "update-norm clipping (fields backend, "
+                "faults.max_update_norm); deadline/retransmission/crash "
+                "fault channels do compose with async")
 
     def replace(self, **kw) -> "ExperimentSpec":
         return dataclasses.replace(self, **kw)
@@ -459,7 +503,7 @@ class ExperimentSpec:
             cohort=None if cohort is None else cohort.K,
             cohort_sampler="uniform" if cohort is None else cohort.sampler,
             cohort_spare=0 if cohort is None else cohort.spare,
-            shard_clients=self.shard_clients)
+            shard_clients=self.shard_clients, async_spec=self.async_spec)
 
 
 # ---------------------------------------------------------------------------
@@ -510,6 +554,12 @@ register("mnist_sampled", ExperimentSpec(
     model="mnist_cnn_small", dataset="mnist", n_train=240, n_test=80,
     scenario="dropout",
     label="mnist_sampled"))
+register("mnist_async", ExperimentSpec(
+    fed=FedConfig(n_devices=10, batch_size=8, theta=0.62, lr=0.05),
+    model="mnist_cnn_small", dataset="mnist", n_train=240, n_test=80,
+    scenario="stragglers", backend="async",
+    async_spec=AsyncSpec(buffer_size=4, staleness="poly"),
+    label="mnist_async"))
 register("mnist_storm", ExperimentSpec(
     fed=FedConfig(n_devices=10, epsilon=0.01, nu=2.0, c=CALIBRATED_C,
                   lr=0.05),

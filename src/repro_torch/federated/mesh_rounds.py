@@ -31,6 +31,11 @@ sizes arrive as one (S, K) row a round instead of a chunk constant
 constant and the ops are the same, so the result is the dense result bit
 for bit.
 
+The asynchronous backend (Simulator(backend='async'), build_async_chunk)
+runs arrival events instead of rounds: one client a event, popped from a
+device-side finish-time array, its update staleness-weighted into a
+buffer that fires an aggregation every K kept updates.
+
 Aggregation modes:
   'allreduce'       the weighted FedAvg mean in float32 (paper-faithful).
   'int8_stochastic' every client's delta goes through the int8
@@ -43,6 +48,7 @@ from __future__ import annotations
 
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 from torch.func import grad_and_value, vmap
 
@@ -467,6 +473,185 @@ def build_fleet_chunk(value_and_grad: Callable, opt: Optimizer,
                 ys.setdefault(k, []).append(v)
         return params, opt_state, {k: torch.stack(v, dim=1)
                                    for k, v in ys.items()}
+
+    return chunk_step
+
+
+def build_async_chunk(value_and_grad: Callable, opt: Optimizer,
+                      n_clients: int, spec, batch_from: Optional[Callable],
+                      compress: bool = False, noise: Optional[Callable] = None,
+                      rows: Optional[int] = None):
+    """A chunk of the asynchronous server's arrival events
+    (Simulator(backend='async')), the counterpart of the reference's
+    build_async_chunk (mesh_rounds.py:702): each event pops the earliest
+    finisher of a (C,) float32 finish-time array with torch.argmin (first
+    minimum, as np.argmin: the host twin's contract, events.twin_step).
+
+    chunk_step(params_C, opt_C, gen, async_c, sizes, data, xs) ->
+    (params_C', opt_C', async_c', ys). params_C and opt_C keep the
+    synchronous layout, but row c is the snapshot client c was DISPATCHED
+    with (rows differ between aggregations). `gen` is the run's quantizer
+    generator (compress only), `sizes` the (C,) raw float32 data sizes,
+    `data` the device-resident dataset (with `batch_from`) or None.
+
+    async_c, the carry (SimState.async_c), holds device tensors:
+      params_g   the server's global model (unstacked tree)
+      buf        the staleness-weighted delta buffer (float32 tree)
+      buf_w      float32 sum of the buffered weights
+      cnt        int32 count of buffered updates
+      loss_sum   float32 sum of the buffered updates' local losses
+      t_finish   (C,) float32 finish time of each client's dispatch; +inf
+                 marks a client blocked until the aggregation acks it
+      t_next     (C,) float32 service time of a blocked client's next
+                 dispatch, applied at its release
+      now        float32 event clock (arrival time of the last event)
+      version    int32 server aggregation count
+      version_C  (C,) int32 server version each client was dispatched at
+      drop_C     (C,) float32 1.0 where the in-flight update will be lost
+
+    xs, one row an event, on the device: 't_svc' (E, C) float32 service
+    times of the dispatch handed out at the event, 'drop_next' (E, C) its
+    loss flags (only the arriving client's column is read), and the
+    arriving client's V batches: 'idx' (E, V, B) gather indices into
+    `data`, or 'batches' leaves (E, V, B, ...). An optional host bool
+    array 'valid' (E,) marks the events to run: the reference runs every
+    padded event and masks its writes, the port skips it, which is that
+    no-op exactly (params, optimizer state, carry and generator
+    unchanged). ys stacks each run event's 't_event', 'client', 'dropped',
+    'agg', 'loss_agg' (NaN off an aggregation), 'staleness', 'version' and
+    'cnt' along axis 0.
+
+    Per event: client c runs V local steps from its snapshot
+    (local_steps_fn on a one-row stack, as a 'loop' client: on the card
+    every product a fold matmul at batch 1); with compress its delta
+    takes one noise(gen, (1, rows, 1024)) draw and one quantize launch;
+    the weight is w = staleness_weight(version - version_C[c]) *
+    sizes[c]; a kept update adds takef * (w * delta) to the buffer (+0.0
+    exactly when dropped) and the K-th fires params_g += buf / buf_w
+    ('fedbuff') or mixes (1 - lr w) params_g + lr w new ('fedasync').
+    Re-dispatch is ack-at-aggregation: a kept update's client blocks until
+    the aggregation that consumes it, then restarts from the fresh
+    aggregate at the fill instant (now + t_next); a dropped update's
+    client restarts at once from the current model (now + t_svc[c]).
+
+    Nothing in a chunk synchronises with the host: the pop is a 0-dim
+    device index (index_select, torch.where), every constant a Python
+    scalar, and no tensor is built from host data; the caller uploads xs
+    before and fetches ys after. No input tensor is written in place."""
+    from repro_torch.federated import events
+
+    local = local_steps_fn(value_and_grad, opt)
+    K = int(spec.buffer_size)
+    fedasync = spec.mode == "fedasync"
+    lr = float(np.float32(spec.server_lr))
+    C = n_clients
+
+    def chunk_step(params_C, opt_C, gen, async_c, sizes, data, xs):
+        sizes_f32 = sizes.to(torch.float32)
+        lanes = torch.arange(C, device=sizes.device)
+        a = dict(async_c)
+        ys: Dict[str, list] = {}
+        n = xs["t_svc"].shape[0]
+        valid = xs.get("valid")
+        for e in range(n):
+            if valid is not None and not valid[e]:
+                continue
+            t_finish = a["t_finish"]
+            c = torch.argmin(t_finish)
+            c1 = c.reshape(1)
+            at_c = lambda t: t.index_select(0, c1).reshape(())  # noqa: E731
+            now = at_c(t_finish)
+            onehot = lanes == c
+            p_c = tree_map(lambda t: t.index_select(0, c1), params_C)
+            s_c = tree_map(lambda t: t.index_select(0, c1), opt_C)
+            if "idx" in xs:
+                batches = batch_from(data, xs["idx"][e:e + 1])
+            else:
+                batches = tree_map(lambda x: x[e:e + 1], xs["batches"])
+            new_p, new_s, loss = local(p_c, s_c, batches)
+            loss = loss.reshape(())
+            delta = tree_map(
+                lambda n_, o: n_.to(torch.float32) - o.to(torch.float32),
+                new_p, p_c)
+            if compress:
+                u = noise(gen, (1, rows, compression.ROW))
+                delta = compression.decompress_update(
+                    compression.compress_update(delta, u))
+            drop = at_c(a["drop_C"])
+            stale = (a["version"] - at_c(a["version_C"])).to(torch.float32)
+            ws = events.staleness_weight(spec, stale)
+            w = ws * at_c(sizes_f32)
+            take = drop == 0
+            takef = take.to(torch.float32)
+            # The buffer entry: an exact +0.0 when dropped.
+            buf = tree_map(lambda b, d: b + takef * (w * d[0]),
+                           a["buf"], delta)
+            buf_w = a["buf_w"] + takef * w
+            cnt = a["cnt"] + take.to(torch.int32)
+            loss_sum = a["loss_sum"] + takef * loss
+            fill = take if fedasync else take & (cnt >= K)
+            if fedasync:
+                am = torch.where(fill, lr * ws, 0.0)
+                params_g = tree_map(
+                    lambda g, n_: ((1.0 - am) * g.to(torch.float32)
+                                   + am * n_[0].to(torch.float32)
+                                   ).to(g.dtype),
+                    a["params_g"], new_p)
+            else:
+                denom = torch.where(fill, buf_w, 1.0)
+                params_g = tree_map(
+                    lambda g, b: torch.where(
+                        fill, g.to(torch.float32) + b / denom,
+                        g.to(torch.float32)).to(g.dtype),
+                    a["params_g"], buf)
+            version = a["version"] + fill.to(torch.int32)
+            loss_agg = torch.where(
+                fill, loss_sum / torch.clamp(cnt.to(torch.float32), min=1.0),
+                float("nan"))
+            # The aggregation drains the buffer.
+            buf = tree_map(lambda b: torch.where(fill, 0.0, b), buf)
+            buf_w = torch.where(fill, 0.0, buf_w)
+            cnt = torch.where(fill, 0, cnt).to(torch.int32)
+            loss_sum = torch.where(fill, 0.0, loss_sum)
+            # Ack-at-aggregation re-dispatch. Every time write is a float32
+            # add of float32 tensors (now + t_svc[c], now + t_next), the
+            # twin's np.float32 adds.
+            t_svc = xs["t_svc"][e]
+            t_next = torch.where(onehot & take, t_svc, a["t_next"])
+            t_fin = torch.where(
+                onehot, torch.where(take, float("inf"), now + t_svc),
+                t_finish)
+            release = fill & torch.isinf(t_fin)  # includes c itself
+            t_fin = torch.where(release, now + t_next, t_fin)
+            version_C = torch.where(onehot | release, version, a["version_C"])
+            # A dropped update's client rebinds to the current model, every
+            # released client to the fresh aggregate (fill is False on a
+            # drop, so params_g is the right model for both).
+            bind = release | (onehot & ~take)
+            params_C = tree_map(
+                lambda t, g: torch.where(
+                    bind.reshape((-1,) + (1,) * (t.dim() - 1)),
+                    g.to(t.dtype), t),
+                params_C, params_g)
+            opt_C = tree_map(
+                lambda t, n_: torch.where(
+                    onehot.reshape((-1,) + (1,) * (t.dim() - 1)),
+                    n_.to(t.dtype), t),
+                opt_C, new_s)
+            a = {"params_g": params_g, "buf": buf, "buf_w": buf_w,
+                 "cnt": cnt, "loss_sum": loss_sum, "t_finish": t_fin,
+                 "t_next": t_next, "now": now, "version": version,
+                 "version_C": version_C,
+                 "drop_C": torch.where(onehot, xs["drop_next"][e],
+                                       a["drop_C"])}
+            y = {"t_event": now, "client": c.to(torch.int32),
+                 "dropped": drop, "agg": fill, "loss_agg": loss_agg,
+                 "staleness": torch.where(take, stale, 0.0),
+                 "version": version, "cnt": cnt}
+            for k, v in y.items():
+                ys.setdefault(k, []).append(v)
+        return params_C, opt_C, a, {k: torch.stack(v)
+                                    for k, v in ys.items()}
 
     return chunk_step
 

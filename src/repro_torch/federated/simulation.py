@@ -16,6 +16,8 @@ scenarios (federated/scenarios.py) and fault layer (federated/faults.py):
     state, records = sim.run_chunk(state, rounds=10)
     fleet = sim.run_fleet(seeds=range(8), max_rounds=100, eval_every=10)
     save_state(path, state); state = load_state(path, like=sim.init())
+    asim = Simulator(..., backend="async", async_spec=AsyncSpec(5))
+    state, records = asim.run_events(asim.init(seed), events=11)
 
 Three synchronous backends share the same math:
 
@@ -41,6 +43,21 @@ Three synchronous backends share the same math:
       round's one (C, rows, 1024) draw, row m for client m, drawn for all
       M clients whatever the mask (the reference's sequential_client_keys
       rule), so the three backends stay on one generator stream.
+
+The asynchronous backend, backend='async' with async_spec=
+events.AsyncSpec(...), replaces the round barrier with an event queue
+(mesh_rounds.build_async_chunk): one client a arrival event, popped on the
+device from a (C,) float32 finish-time array, its update staleness-
+weighted into a buffer that aggregates every buffer_size kept updates
+(FedBuff) or mixes at once (FedAsync). A 'round' is an aggregation:
+run(max_rounds=) counts fills and chunks end at them; run_events(state,
+events) runs an exact event count and may stop mid-buffer. The host
+replays the schedule in numpy float32 (events.twin_step) to pick each
+event's client and batches ahead of the chunk, and checks the device's
+pops against it at every chunk's one fetch. Each event draws one M-wide
+dispatch realization (service time V t_cp + uplink, and the drop flag)
+from the scenario stream ('uniform' when none is given) and, compressed,
+one (1, rows, 1024) quantizer noise and one quantize launch.
 
 Sampled participation (`cohort=K`, 'scan' and 'batched'): each round a
 K-client cohort is drawn from the M clients on the host (uniform, or
@@ -82,7 +99,7 @@ import torch
 from repro_torch.configs.base import FedConfig, WirelessConfig
 from repro_torch.core import delay
 from repro_torch.device import resolve_device
-from repro_torch.federated import compression, mesh_rounds, scenarios
+from repro_torch.federated import compression, events, mesh_rounds, scenarios
 from repro_torch.federated.client import (
     client_round,
     make_local_update,
@@ -100,9 +117,8 @@ from repro_torch.kernels.quantize.ref import stochastic_noise
 from repro_torch.optim.api import Optimizer
 from repro_torch.utils.tree import leaves, structure, tree_bytes, tree_map
 
-# The synchronous backends the port runs (the reference's 'async' is ROADMAP
-# queue 1, item 12).
-BACKENDS = ("scan", "batched", "loop")
+# The backends: three synchronous ones and the event queue.
+BACKENDS = ("scan", "batched", "loop", "async")
 
 
 @dataclass
@@ -184,6 +200,19 @@ class SimState:
                 its touched clients only); None means "fresh at `seed`"
                 (or iterators without snapshots)
 
+    The asynchronous backend's fields (None / 0 on the synchronous
+    backends, so their states and checkpoints are unchanged):
+      async_c     the event queue's device carry (global model, buffer,
+                  finish times, dispatch versions, drop flags:
+                  mesh_rounds.build_async_chunk). A mid-buffer state
+                  resumes bit for bit: the pending updates live here.
+      event       arrival-event cursor (`round` counts aggregations)
+      async_host  float64 bookkeeping of the in-flight dispatches for the
+                  records: {'t_cm_disp' (C,), 'attempts_disp' (C,),
+                  'bits_acc'} (each dispatch's effective uplink seconds
+                  and attempts, and the uplink bits since the last
+                  aggregation)
+
     No method writes into a state's tensors, so a state stays valid after
     it is passed to run(): the divergence guard keeps the pre-chunk state
     itself as its last-good snapshot.
@@ -197,6 +226,9 @@ class SimState:
     sim_time: float = 0.0
     stream: Optional[dict] = None
     data: Optional[tuple] = None
+    async_c: Optional[dict] = None
+    event: int = 0
+    async_host: Optional[dict] = None
 
 
 @dataclass
@@ -272,7 +304,14 @@ class Simulator:
     stacked (S, ...) member axis in one call (values (S,)), for
     run_fleet. Both are given or neither. Runs on `device` ("cuda" unless
     the caller asks for "cpu"), with `backend` 'scan' (default),
-    'batched' or 'loop' (the module docstring).
+    'batched', 'loop' or 'async' (the module docstring).
+
+    `async_spec` (an events.AsyncSpec) is the event queue's aggregation
+    policy, required with backend='async' and refused without it: its
+    buffer_size at most M, no cohort, shard_clients, min_quorum or
+    max_update_norm, and a stateless local optimizer (every client
+    re-dispatches from the current global model); a simulator without a
+    scenario runs on 'uniform' (the dispatch draws live on its stream).
 
     `scenario` (a scenarios.Scenario or a registered name) draws each
     round's participation mask and channel on the host; `faults` (a
@@ -330,6 +369,7 @@ class Simulator:
         cohort_sampler: str = "uniform",  # 'uniform' | 'weighted' (by D_m)
         cohort_spare: int = 0,  # over-provisioned candidates a round
         shard_clients: bool = False,
+        async_spec: Optional[events.AsyncSpec] = None,
     ):
         # The constructor's arguments, for the recovery path's rebuilt
         # simulator (_recovery_variant).
@@ -341,14 +381,41 @@ class Simulator:
             faults=faults, masked_loss_fn=masked_loss_fn,
             value_and_grad=value_and_grad, backend=backend, cohort=cohort,
             cohort_sampler=cohort_sampler, cohort_spare=cohort_spare,
-            shard_clients=shard_clients)
+            shard_clients=shard_clients, async_spec=async_spec)
         self.device = resolve_device(device)
-        if backend == "async":
-            raise ValueError(
-                "backend='async' (the event queue) is not ported yet: "
-                "ROADMAP.md, queue 1, item 12")
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}")
+        if backend == "async" and async_spec is None:
+            raise ValueError(
+                "backend='async' needs an aggregation policy — pass "
+                "async_spec=events.AsyncSpec(buffer_size=K, ...)")
+        if (async_spec is not None
+                and async_spec.buffer_size > fed.n_devices):
+            raise ValueError(
+                f"AsyncSpec.buffer_size ({async_spec.buffer_size}) must "
+                f"not exceed n_devices ({fed.n_devices}): accepted "
+                "updates block their client until the consuming "
+                "aggregation, so a buffer larger than the population "
+                "could never fill")
+        if async_spec is not None and backend != "async":
+            raise ValueError(
+                f"async_spec is only meaningful with backend='async' "
+                f"(got backend={backend!r}) — drop it or switch backends")
+        if backend == "async":
+            if cohort is not None:
+                raise ValueError(
+                    "backend='async' and cohort=K (sampled participation) "
+                    "are mutually exclusive: the event queue already "
+                    "schedules per-client work continuously, so there is "
+                    "no per-round cohort to draw. Drop cohort (every "
+                    "client stays in flight) or use backend='scan'.")
+            if shard_clients:
+                raise ValueError(
+                    "backend='async' and shard_clients are mutually "
+                    "exclusive: the event scan runs ONE client per event "
+                    "(nothing to shard over a client mesh). Drop "
+                    "shard_clients or use backend='scan'.")
+        self._async = async_spec if backend == "async" else None
         self.backend = backend
         if cohort_sampler not in ("uniform", "weighted"):
             raise ValueError(
@@ -444,11 +511,17 @@ class Simulator:
                 "state between rounds (cohort lanes change owners every "
                 "round; clients re-initialize from the global model) — "
                 "use a stateless local optimizer (plain SGD)")
+        if self._async is not None and leaves(opt.init(self._init_params)):
+            raise ValueError(
+                "backend='async' re-dispatches every client from the "
+                "current global model, so per-client optimizer state "
+                "carried across stale dispatches is ill-defined — use a "
+                "stateless local optimizer (plain SGD)")
         self._rows = compression.n_rows(self._init_params)
-        # The device-resident data path is the chunked path's, as in the
+        # The device-resident data path is the chunked paths', as in the
         # reference; the per-round backends always take host batches.
         self._data_dev = self._batch_from = None
-        if backend == "scan":
+        if backend in ("scan", "async"):
             self._detect_device_data(probe)
         w = torch.as_tensor(np.asarray(data_sizes), dtype=torch.float32,
                             device=self.device)
@@ -469,6 +542,10 @@ class Simulator:
         if self._sampled and self.scenario is None:
             # The cohort draws live on the scenario stream: promote to the
             # neutral 'uniform' scenario so the stream exists.
+            self.scenario = scenarios.get("uniform")
+        if self._async is not None and self.scenario is None:
+            # The event queue draws each dispatch's service time from the
+            # realization stream: promote as the sampled path does.
             self.scenario = scenarios.get("uniform")
         fm = self.scenario.faults if self.scenario is not None else None
         self._faults = fm if (fm is not None and fm.active) else None
@@ -491,8 +568,36 @@ class Simulator:
             # full-population Eq. 8 round time.
             nominal = delay.round_time(*self.round_times(), fed.local_rounds)
             self._deadline = self._faults.resolve_deadline(nominal)
+        if self._async is not None and self._quorum is not None:
+            raise ValueError(
+                "backend='async' and FaultModel.min_quorum are mutually "
+                "exclusive: the buffered server aggregates whenever "
+                "buffer_size updates arrive — there is no per-round "
+                "participant count to gate. Drop min_quorum from the "
+                "FaultModel (AsyncSpec.buffer_size IS the async quorum) "
+                "or use backend='scan'.")
+        if (self._async is not None and self._faults is not None
+                and self._faults.max_update_norm is not None):
+            raise ValueError(
+                "backend='async' and FaultModel.max_update_norm are "
+                "mutually exclusive: update sanitation runs at the sync "
+                "round step's participant axis, which the event scan "
+                "does not have. Drop max_update_norm or use "
+                "backend='scan'. (The always-on defaults "
+                "reject_nonfinite/divergence_guard are round-level "
+                "guards and are inert on the async backend.)")
         if backend == "loop":
             self.local_update = make_local_update(self.value_and_grad, opt)
+        elif backend == "async":
+            # Each chunk ends at an aggregation boundary or after E events
+            # (the reference's static event budget).
+            self._async_E = int(
+                self._async.event_budget
+                if self._async.event_budget is not None
+                else 8 * max(fed.n_devices, self._async.buffer_size))
+            self._chunk_fn = mesh_rounds.build_async_chunk(
+                self.value_and_grad, opt, fed.n_devices, self._async,
+                self._batch_from, fed.compress_updates, noise, self._rows)
         else:
             # The batched round, also run_round's step on 'scan' (the
             # stacked state layout is the same).
@@ -546,7 +651,12 @@ class Simulator:
         global model and M optimizer states), the noise generator seeded
         with `seed`, round 0, clock 0, and fresh data iterators (a
         simulator built on a list of live iterators continues them where
-        they are)."""
+        they are).
+
+        'async': the initial dispatch hands every client version-0 work at
+        t=0, which takes one realization draw, so the state holds the
+        stream's position after it, the event carry (finish times = the
+        drawn service times) and the draw's float64 bookkeeping."""
         seed = int(self.fed.seed if seed is None else seed)
         if self.backend == "loop":
             params = self._init_params
@@ -558,8 +668,33 @@ class Simulator:
             opt_C = self.opt.init(params)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
-        return SimState(params_C=params, opt_C=opt_C, rng=gen.get_state(),
-                        seed=seed)
+        state = SimState(params_C=params, opt_C=opt_C, rng=gen.get_state(),
+                         seed=seed)
+        if self.backend != "async":
+            return state
+        stream = self.scenario.stream(self.pop, seed)
+        t_svc0, drop0, t_cm0, att0 = self._async_dispatch_draw(stream)
+        C, dev = self.fed.n_devices, self.device
+        scalar = lambda dt: torch.zeros((), dtype=dt, device=dev)  # noqa: E731
+        async_c = {
+            "params_g": tree_map(lambda x: x.clone(), self._init_params),
+            "buf": tree_map(lambda x: torch.zeros(
+                x.shape, dtype=torch.float32, device=dev), self._init_params),
+            "buf_w": scalar(torch.float32),
+            "cnt": scalar(torch.int32),
+            "loss_sum": scalar(torch.float32),
+            "t_finish": torch.from_numpy(t_svc0).to(dev),
+            "t_next": torch.zeros(C, dtype=torch.float32, device=dev),
+            "now": scalar(torch.float32),
+            "version": scalar(torch.int32),
+            "version_C": torch.zeros(C, dtype=torch.int32, device=dev),
+            "drop_C": torch.from_numpy(drop0).to(dev),
+        }
+        return dataclasses.replace(
+            state, stream=stream.state(), async_c=async_c,
+            async_host={"t_cm_disp": np.asarray(t_cm0, np.float64),
+                        "attempts_disp": np.asarray(att0, np.float64),
+                        "bits_acc": 0.0})
 
     def _make_iters(self, seed: int):
         src = (self._data_src(seed) if callable(self._data_src)
@@ -618,8 +753,9 @@ class Simulator:
         device (a checkpoint's come back on the CPU); tensors already
         there are kept as they are."""
         on = lambda t: tree_map(lambda x: x.to(self.device), t)  # noqa: E731
-        return dataclasses.replace(state, params_C=on(state.params_C),
-                                   opt_C=on(state.opt_C))
+        return dataclasses.replace(
+            state, params_C=on(state.params_C), opt_C=on(state.opt_C),
+            async_c=None if state.async_c is None else on(state.async_c))
 
     def _generator(self, state: SimState) -> torch.Generator:
         """The run's noise generator on this simulator's device, at the
@@ -639,7 +775,10 @@ class Simulator:
 
     def params(self, state: SimState) -> Any:
         """The global model in `state` (client row 0; 'loop' holds it
-        unstacked)."""
+        unstacked; 'async' carries it in async_c, its client rows being
+        dispatch snapshots that differ between aggregations)."""
+        if self.backend == "async":
+            return state.async_c["params_g"]
         return self._params_from(state.params_C)
 
     def _params_from(self, params_C) -> Any:
@@ -1081,6 +1220,11 @@ class Simulator:
         metrics: 'train_loss' (a device scalar on the stacked backends, a
         float on 'loop'), and under a scenario 'n_participants', on the
         fault path also 'finite' and, with a quorum, 'rejected'."""
+        if self.backend == "async":
+            raise ValueError(
+                "run_round is round-synchronous; backend='async' advances "
+                "by arrival events, not rounds — use run() (aggregation "
+                "cadence) or run_events() (exact event counts).")
         if real is not None and self.scenario is None:
             raise ValueError(
                 "run_round(real=...) was given a scenario realization but "
@@ -1329,6 +1473,268 @@ class Simulator:
                               params=self._params_from(params_C),
                               label=self.label, fed=self.fed)
 
+    # -- asynchronous (event-driven) execution ------------------------------
+    def _async_dispatch_draw(self, stream):
+        """One M-wide dispatch realization from the scenario stream:
+        (t_svc float32, drop float32, t_cm float64, attempts float64), all
+        (M,). t_svc is the service time V*t_cp + effective uplink, in
+        float32 (it feeds the float32 schedule, twin and device alike);
+        drop marks the dispatches whose update will be lost: the scenario's
+        mask after the fault layer's deadline cut, resolved M-wide in
+        float64 by `_resolve_round` exactly as a synchronous round's.
+        Retransmission attempts and backoff are inside the effective uplink
+        time, so a retrying client simply finishes later."""
+        real = stream.next_round()
+        if self._faults is not None:
+            real, t_cm, _ = self._resolve_round(real)
+            attempts = np.asarray(real.attempts, np.float64)
+        else:
+            t_cm = delay.per_client_uplink_time(
+                self._update_bits(), self.wireless, self.pop.p, real.h)
+            attempts = np.ones(self.fed.n_devices, np.float64)
+        t_svc = (self.fed.local_rounds * self._t_cp_clients
+                 + t_cm).astype(np.float32)
+        drop = (~np.asarray(real.mask, bool)).astype(np.float32)
+        return t_svc, drop, np.asarray(t_cm, np.float64), attempts
+
+    def _async_twin(self, state: SimState) -> events.TwinState:
+        """The host float32 schedule twin positioned at `state`: one fetch
+        of the carry's scheduling leaves (params stay on the device)."""
+        a = {k: state.async_c[k].cpu().numpy() for k in (
+            "t_finish", "t_next", "drop_C", "version", "version_C", "cnt",
+            "now")}
+        h = state.async_host
+        return events.TwinState(
+            t_finish=np.asarray(a["t_finish"], np.float32).copy(),
+            t_next=np.asarray(a["t_next"], np.float32).copy(),
+            drop=np.asarray(a["drop_C"], np.float32).copy(),
+            version=int(a["version"]),
+            version_disp=np.asarray(a["version_C"], np.int32).copy(),
+            cnt=int(a["cnt"]),
+            now=np.float32(a["now"]),
+            t_cm_disp=np.asarray(h["t_cm_disp"], np.float64).copy(),
+            attempts_disp=np.asarray(h["attempts_disp"], np.float64).copy())
+
+    def _async_chunk_inputs(self, iters, twin, stream, stop_aggs=None,
+                            stop_events=None, max_sim_time=None):
+        """The host side of one event chunk: advance the twin event by
+        event — one M-wide dispatch draw and the arriving client's V
+        batches an event — until `stop_aggs` aggregations have fired (a
+        chunk ends at an aggregation boundary, the async form of
+        eval_every chunks), an aggregation reaches `max_sim_time`,
+        `stop_events` events have run (run_events), or the budget E is
+        full. Returns (xs on the host, [TwinEvent], n_events); the twin
+        is advanced in place. Only the chunk's events are stacked (the
+        reference pads to E for its one compiled trace)."""
+        V = self.fed.local_rounds
+        limit = (self._async_E if stop_events is None
+                 else min(self._async_E, int(stop_events)))
+        t_svc_rows, drop_rows, data_rows, evs = [], [], [], []
+        n_aggs = 0
+        while len(evs) < limit:
+            c = int(np.argmin(twin.t_finish))
+            # The arriving client's batches: its iterator advances at
+            # arrival (per-client streams are independent, so client c's
+            # k-th dispatch takes its k-th block of V batches).
+            it = iters[c]
+            if self._data_dev is not None:
+                data_rows.append(np.stack(
+                    [it.next_indices() for _ in range(V)]).astype(np.int32))
+            else:
+                data_rows.append(stack_batches(
+                    [it.next_batch() for _ in range(V)]))
+            t_svc, drop, t_cm, att = self._async_dispatch_draw(stream)
+            e = events.twin_step(self._async, twin, t_svc, drop, t_cm, att)
+            assert e.client == c
+            t_svc_rows.append(t_svc)
+            drop_rows.append(drop)
+            evs.append(e)
+            if e.aggregated and stop_events is None:
+                n_aggs += 1
+                if stop_aggs is not None and n_aggs >= stop_aggs:
+                    break
+                if (max_sim_time is not None
+                        and float(e.t_event) >= max_sim_time):
+                    break
+        xs = {"t_svc": np.stack(t_svc_rows), "drop_next": np.stack(drop_rows)}
+        if self._data_dev is not None:
+            xs["idx"] = np.stack(data_rows)
+        else:
+            xs["batches"] = stack_batches(data_rows)
+        return xs, evs, len(evs)
+
+    def _async_call(self, params_C, opt_C, gen, async_c, xs):
+        """One event chunk on the device: xs uploaded first (one transfer a
+        leaf), the chunk (no host synchronisation inside), then the
+        chunk's ONE fetch: every output packed into one float64 (E, 8)
+        tensor (exact for its float32, int32 and bool values) and copied
+        to the host together. Returns (params_C', opt_C', async_c', ys as
+        numpy columns)."""
+        dev = self.device
+        inputs = {"t_svc": torch.from_numpy(xs["t_svc"]).to(dev),
+                  "drop_next": torch.from_numpy(xs["drop_next"]).to(dev)}
+        if "idx" in xs:
+            inputs["idx"] = _upload(xs["idx"], dev)
+        else:
+            inputs["batches"] = tree_map(lambda a: _upload(a, dev),
+                                         xs["batches"])
+        params_C, opt_C, async_c, ys = self._chunk_fn(
+            params_C, opt_C, gen, async_c, self._sizes, self._data_dev,
+            inputs)
+        return params_C, opt_C, async_c, fetch_columns(ys)
+
+    def _async_records(self, ys, evs, n_ev: int, r0: int, bits_acc: float):
+        """One RoundRecord an aggregation of a fetched event chunk, and
+        the uplink-bits accumulator carried on (the bits of the arrivals
+        since the last aggregation: it spans chunks and checkpoints in
+        SimState.async_host). First the device's pops are checked against
+        the twin's, event by event: a mismatch raises RuntimeError, since
+        every record would be misattributed.
+
+        An async 'round' is one buffer fill: sim_time is the absolute
+        float32 event clock at the filling arrival (the event clock is
+        the schedule); T_cm and T_cp are the filling update's own float64
+        uplink and compute times."""
+        clients = np.asarray(ys["client"][:n_ev]).astype(np.int32)
+        twin_clients = np.array([e.client for e in evs], np.int32)
+        if not np.array_equal(clients, twin_clients):
+            j = int(np.argmin(clients == twin_clients))
+            raise RuntimeError(
+                "async schedule twin diverged from the compiled event "
+                f"queue at event {j}: twin predicted client "
+                f"{int(twin_clients[j])}, the scan popped "
+                f"{int(clients[j])}. The f32 replay contract "
+                "(events.twin_step) is broken — records would be "
+                "misattributed, refusing to continue.")
+        update_bits = self._update_bits()
+        records = []
+        k = 0
+        for j, e in enumerate(evs):
+            # Every arrival's dispatch paid its uplink: on the fault path
+            # every retransmission attempt, dropped or not (the
+            # synchronous rounds' attempts rule); else one upload a kept
+            # arrival.
+            if self._faults is not None:
+                bits_acc += float(e.attempts_done) * update_bits
+            elif not e.dropped:
+                bits_acc += update_bits
+            if e.aggregated:
+                k += 1
+                records.append(RoundRecord(
+                    round=r0 + k, sim_time=float(e.t_event),
+                    T_cm=float(e.t_cm_done),
+                    T_cp=float(self._t_cp_clients[e.client]),
+                    train_loss=float(ys["loss_agg"][j]),
+                    n_participants=int(self._async.buffer_size),
+                    uplink_bits=bits_acc))
+                bits_acc = 0.0
+        return records, bits_acc
+
+    def _async_state(self, state, params_C, opt_C, gen, async_c, twin, mat,
+                     rnd: int, n_events: int, bits_acc: float) -> SimState:
+        """`state` advanced over async chunks: the device carry, the
+        twin's float64 dispatch bookkeeping and the event cursor; the
+        clock is the twin's event clock."""
+        return dataclasses.replace(
+            self._state_at(state, params_C, opt_C, gen, mat, rnd,
+                           float(twin.now)),
+            async_c=async_c, event=int(state.event) + int(n_events),
+            async_host={"t_cm_disp": twin.t_cm_disp.copy(),
+                        "attempts_disp": twin.attempts_disp.copy(),
+                        "bits_acc": float(bits_acc)})
+
+    def _async_begin(self, state: SimState):
+        """An async run's live parts at `state`: (state on this device,
+        (iterators, stream), generator, twin, bits accumulator)."""
+        state = self._placed(state)
+        mat = self._materialize(state)
+        return (state, mat, self._generator(state), self._async_twin(state),
+                float(state.async_host.get("bits_acc", 0.0)))
+
+    def _run_async(self, state, max_rounds, target_acc, eval_every,
+                   max_sim_time):
+        """run() on 'async': chunks of events ending at aggregation
+        boundaries (so eval falls where a synchronous run's does),
+        one upload and one fetch a chunk. A 'round' is a buffer fill;
+        max_rounds counts fills. Eval takes the global model params_g."""
+        state, mat, gen, twin, bits_acc = self._async_begin(state)
+        iters, stream = mat
+        params_C, opt_C, async_c = state.params_C, state.opt_C, state.async_c
+        history: List[RoundRecord] = []
+        r0 = state.round
+        n_events = 0
+        done, stop, idle_chunks = 0, False, 0
+        while done < max_rounds and not stop:
+            n_t = min(eval_every - done % eval_every, max_rounds - done)
+            xs, evs, n_ev = self._async_chunk_inputs(
+                iters, twin, stream, stop_aggs=n_t,
+                max_sim_time=max_sim_time)
+            params_C, opt_C, async_c, ys = self._async_call(
+                params_C, opt_C, gen, async_c, xs)
+            records, bits_acc = self._async_records(
+                ys, evs, n_ev, r0 + done, bits_acc)
+            n_events += n_ev
+            history.extend(records)
+            done += len(records)
+            # Aggregation-progress watchdog: a scenario that drops every
+            # update (or a buffer the surviving arrivals can never fill)
+            # would otherwise run chunks forever.
+            idle_chunks = 0 if records else idle_chunks + 1
+            if idle_chunks >= 1000:
+                raise RuntimeError(
+                    f"async run made no aggregation progress over "
+                    f"{idle_chunks * self._async_E} consecutive events "
+                    f"(buffer_size={self._async.buffer_size}) — the "
+                    "scenario drops too many updates to ever fill the "
+                    "buffer. Shrink buffer_size or fix the scenario.")
+            if max_sim_time and float(twin.now) >= max_sim_time:
+                stop = True
+            at_boundary = done > 0 and (done % eval_every == 0
+                                        or done == max_rounds)
+            if self.eval_fn and records and (at_boundary or stop):
+                rec = history[-1]
+                ev = self.eval_fn(async_c["params_g"])
+                rec.test_acc = float(ev.get("acc", np.nan))
+                rec.test_loss = float(ev.get("loss", np.nan))
+                if (target_acc and rec.test_acc is not None
+                        and rec.test_acc >= target_acc):
+                    stop = True
+        out = self._async_state(state, params_C, opt_C, gen, async_c, twin,
+                                mat, r0 + done, n_events, bits_acc)
+        return out, SimResult(history=history, params=async_c["params_g"],
+                              label=self.label, fed=self.fed)
+
+    def run_events(self, state: SimState, events: int):
+        """Run EXACTLY `events` arrival events ('async' only): (state',
+        [RoundRecord] of the aggregations among them). Unlike run(), this
+        may stop mid-buffer: the pending updates, the partial buffer and
+        the event cursor live in the returned state, and a save_state /
+        load_state / resume from it is the uninterrupted run bit for
+        bit."""
+        if self.backend != "async":
+            raise ValueError(
+                f"run_events requires backend='async', not {self.backend!r}")
+        if not isinstance(events, (int, np.integer)) or events < 1:
+            raise ValueError(f"events must be an int >= 1, got {events!r}")
+        state, mat, gen, twin, bits_acc = self._async_begin(state)
+        iters, stream = mat
+        params_C, opt_C, async_c = state.params_C, state.opt_C, state.async_c
+        history: List[RoundRecord] = []
+        done_ev = 0
+        while done_ev < events:
+            xs, evs, n_ev = self._async_chunk_inputs(
+                iters, twin, stream, stop_events=events - done_ev)
+            params_C, opt_C, async_c, ys = self._async_call(
+                params_C, opt_C, gen, async_c, xs)
+            records, bits_acc = self._async_records(
+                ys, evs, n_ev, state.round + len(history), bits_acc)
+            history.extend(records)
+            done_ev += n_ev
+        out = self._async_state(state, params_C, opt_C, gen, async_c, twin,
+                                mat, state.round + len(history), done_ev,
+                                bits_acc)
+        return out, history
+
     def run_chunk(self, state: SimState, rounds: int):
         """Run `rounds` rounds as one chunk, without evaluation:
         (state', [RoundRecord]) ('scan' backend)."""
@@ -1374,8 +1780,22 @@ class Simulator:
         chunk. `recovery=RecoveryPolicy(...)` catches it instead: the run
         resumes from that state with the learning rate backed off (and the
         guard norm optionally tightened), at most max_restarts times, each
-        restart recorded in SimResult.restarts."""
+        restart recorded in SimResult.restarts.
+
+        'async' runs max_rounds aggregations (buffer fills) as chunks of
+        events ending at aggregation boundaries, eval on the global model
+        at each multiple of eval_every, and stops after the aggregation
+        whose event clock reaches max_sim_time; it has no divergence
+        guard, so recovery= raises ValueError."""
         _validate_run_args(max_rounds, eval_every)
+        if self.backend == "async":
+            if recovery is not None:
+                raise ValueError(
+                    "recovery=RecoveryPolicy requires the divergence-"
+                    "guarded sync backends — backend='async' has no "
+                    "in-graph guard to raise from. Use backend='scan'.")
+            return self._run_async(state, max_rounds, target_acc,
+                                   eval_every, max_sim_time)
         if recovery is not None:
             return self._run_recovering(state, recovery, max_rounds,
                                         target_acc, eval_every, max_sim_time)
@@ -1574,6 +1994,19 @@ def _atomic_pickle(path: str, payload: Any) -> None:
         raise
 
 
+def fetch_columns(ys: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """A chunk's per-event outputs (equal-length 1-D tensors of float32,
+    int32 or bool) copied to the host in ONE transfer: stacked as float64
+    columns, which hold every such value exactly, and split again on the
+    host (float64 numpy columns)."""
+    keys = sorted(ys)
+    if not keys:
+        return {}
+    host = torch.stack([ys[k].to(torch.float64) for k in keys],
+                       dim=1).cpu().numpy()
+    return {k: host[:, i] for i, k in enumerate(keys)}
+
+
 def _upload(x, device) -> torch.Tensor:
     """A host array as a tensor on `device`: floating point as float32,
     integers (labels, batch indices) as int64."""
@@ -1599,8 +2032,12 @@ def _state_signature(state: SimState) -> tuple:
     """Shape signature of a state's (params, opt, rng) trio: the trio's
     structure and every leaf's shape and dtype. Metadata only, so it is
     cheap at save and at load, and it catches a checkpoint fed to the
-    wrong spec (or a corrupt payload) before the first round does."""
+    wrong spec (or a corrupt payload) before the first round does. An
+    async state appends its event carry; a synchronous state's signature
+    is the trio's, as before."""
     trio = (state.params_C, state.opt_C, state.rng)
+    if getattr(state, "async_c", None) is not None:
+        trio = trio + (state.async_c,)
     return (structure(trio), tuple((tuple(x.shape), str(x.dtype))
                                    for x in leaves(trio)))
 
@@ -1619,9 +2056,11 @@ def save_state(path: str, state: SimState) -> None:
     crash-safely (`_atomic_pickle`). `load_state` + `Simulator.run`
     continues the run bit for bit, on the kind of device the state was
     made on (its noise generator's state is that device's)."""
-    host = dataclasses.replace(state, params_C=_host_copy(state.params_C),
-                               opt_C=_host_copy(state.opt_C),
-                               rng=_host_copy(state.rng))
+    host = dataclasses.replace(
+        state, params_C=_host_copy(state.params_C),
+        opt_C=_host_copy(state.opt_C), rng=_host_copy(state.rng),
+        async_c=(None if state.async_c is None
+                 else _host_copy(state.async_c)))
     _atomic_pickle(path, {"__repro_simstate__": _STATE_VERSION,
                           "signature": _state_signature(host),
                           "state": host})
@@ -1637,7 +2076,8 @@ def load_state(path: str, like: Optional[SimState] = None) -> SimState:
     the target simulator, e.g. `sim.init()`) also checks that the
     checkpoint was saved from a simulator of the same shapes, and on the
     same kind of device. A bare pickled SimState (the reference's legacy
-    form) loads too."""
+    form) loads too, and so does a checkpoint written before the async
+    fields existed (they take their synchronous defaults)."""
     try:
         with open(path, "rb") as f:
             payload = pickle.load(f)
@@ -1664,6 +2104,12 @@ def load_state(path: str, like: Optional[SimState] = None) -> SimState:
                 "match the payload's leaves")
     else:
         raise ValueError(f"{path!r} does not hold a SimState")
+    if "async_c" not in vars(state):
+        # Pickled before the async fields existed: pickle restored the old
+        # instance dict, so install the synchronous defaults.
+        for name, value in (("async_c", None), ("event", 0),
+                            ("async_host", None)):
+            object.__setattr__(state, name, value)
     if like is not None:
         if _rng_kind(like.rng) != _rng_kind(state.rng):
             raise ValueError(

@@ -48,6 +48,10 @@ exact, losses and params within run_fleet's bounds each round. On the
 card, under the CNN's stacked gradient, a member's rounds are in fact its
 run alone's bit for bit (cnn.cnn_value_and_grad).
 
+An arm on backend='async' (the event queue) runs solo, seed by seed:
+its event clock cannot share a chunk with round loops. Its aggregation
+regime ('fedbuff/K=2/poly') fills the table's agg column.
+
 `plans()` resolves each arm's analytic operating point (the DEFL plan
 or the fixed-(b, V) Eq. 12/8 evaluation) without training.
 """
@@ -185,8 +189,7 @@ def _save_member(path: str, label: str, seed: int,
                  state: SimState, result: SimResult) -> None:
     cpu = torch.device("cpu")
     res = dataclasses.replace(result, params=_to(result.params, cpu))
-    st = dataclasses.replace(state, params_C=_to(state.params_C, cpu),
-                             opt_C=_to(state.opt_C, cpu))
+    st = _state_to(state, cpu)
     payload = {"__repro_study_member__": _MEMBER_CKPT_VERSION,
                "label": label, "seed": int(seed), "state": st,
                "result": res}
@@ -218,9 +221,18 @@ def _load_member(path: str, label: str, seed: int, device,
             "— the study's arms/seeds changed since the checkpoint was "
             "written; point checkpoint_dir at a fresh directory")
     st, res = payload["state"], payload["result"]
-    st = dataclasses.replace(st, params_C=_to(st.params_C, device),
-                             opt_C=_to(st.opt_C, device))
-    return st, dataclasses.replace(res, params=_to(res.params, device))
+    return (_state_to(st, device),
+            dataclasses.replace(res, params=_to(res.params, device)))
+
+
+def _state_to(state: SimState, device) -> SimState:
+    """`state` with its tensors (an async state's event carry too) as own
+    copies on `device`."""
+    return dataclasses.replace(
+        state, params_C=_to(state.params_C, device),
+        opt_C=_to(state.opt_C, device),
+        async_c=(None if state.async_c is None
+                 else _to(state.async_c, device)))
 
 
 @dataclass
@@ -239,8 +251,8 @@ class StudyResult:
     # dense arm, whose K column stays blank).
     cohorts: Dict[str, Optional[int]] = dataclasses.field(
         default_factory=dict)
-    # label -> asynchronous aggregation regime; None (synchronous) for
-    # every arm of the port (the table's agg column reads 'sync').
+    # label -> "mode/K=buffer/staleness" for backend='async' arms (None =
+    # synchronous): the aggregation regime column of table()/to_json().
     async_modes: Dict[str, Optional[str]] = dataclasses.field(
         default_factory=dict)
 
@@ -324,8 +336,9 @@ class StudyResult:
         """Paper-style per-arm rows:
         label,b,V,K,agg,rounds,mean_participants,overall_time_s,acc,
         time_to_target,rounds_rejected,restarts — K the sampled cohort size
-        (blank for dense arms), agg 'sync' for the port's synchronous
-        arms; time/acc as mean+-std
+        (blank for dense arms), agg the aggregation regime ('sync', or
+        'mode/K=buffer/staleness' for backend='async' arms); time/acc as
+        mean+-std
         bands when the study ran several seeds; rounds_rejected/restarts
         are seed totals."""
         multi = len(self.seeds) > 1
@@ -439,10 +452,10 @@ class Study:
             if not isinstance(spec, ExperimentSpec):
                 raise TypeError(f"arm {label!r}: expected ExperimentSpec, "
                                 f"got {type(spec).__name__}")
-            if spec.backend != "scan":
+            if spec.backend not in ("scan", "async"):
                 raise ValueError(
-                    f"arm {label!r}: studies run on backend='scan' (got "
-                    f"{spec.backend!r})")
+                    f"arm {label!r}: studies run on backend='scan' or "
+                    f"'async' (got {spec.backend!r})")
 
     def replace(self, **kw) -> "Study":
         return dataclasses.replace(self, **kw)
@@ -549,9 +562,10 @@ class Study:
         groups: Dict[Any, List[Tuple[str, ExperimentSpec, Simulator]]] = {}
         order: List[Any] = []
         for i, (label, spec, sim) in enumerate(sims):
-            if sim.masked_loss_fn is None:
-                # No envelope form (a hand-built Simulator): the arm runs
-                # alone, seed by seed.
+            if sim.masked_loss_fn is None or sim.backend == "async":
+                # No envelope form (a hand-built Simulator), or an async arm
+                # (its event clock cannot share a chunk with round loops):
+                # the arm runs alone, seed by seed.
                 sig: Any = ("__solo__", i)
             else:
                 sig = _group_signature(spec, sim.fed)
@@ -603,7 +617,10 @@ class Study:
             target_acc=self.target_acc, max_sim_time=self.max_sim_time,
             cohorts={label: (c.K if (c := spec.cohort_spec()) is not None
                              else None) for label, spec in self.arms},
-            async_modes={label: None for label, _ in self.arms})
+            async_modes={
+                label: (f"{a.mode}/K={a.buffer_size}/{a.staleness}"
+                        if (a := spec.async_spec) is not None else None)
+                for label, spec in self.arms})
 
     def _bit_probe(self, group) -> None:
         """Round 1 of each padded arm of a group (its envelope pads it),

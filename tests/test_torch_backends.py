@@ -242,7 +242,8 @@ def test_run_round_repeats_run(backend):
 
 def test_unknown_and_async_backends_raise():
     spec = t_exp.get("mnist_smoke")
-    with pytest.raises(ValueError, match="queue 1, item 12"):
+    # 'async' runs the event queue and needs its aggregation policy.
+    with pytest.raises(ValueError, match="async_spec=events.AsyncSpec"):
         _quad_sim("async", compress=False)
     with pytest.raises(ValueError, match="unknown backend"):
         _quad_sim("vmap", compress=False)

@@ -175,7 +175,7 @@ def test_spec_fields_are_the_references():
     defaults, less the ones naming subsystems the port does not run."""
     t_fields = {f.name: f for f in dataclasses.fields(t_exp.ExperimentSpec)}
     j_fields = {f.name: f for f in dataclasses.fields(j_exp.ExperimentSpec)}
-    assert set(j_fields) - set(t_fields) == {"trace", "impl", "async_spec"}
+    assert set(j_fields) - set(t_fields) == {"trace", "impl"}
     assert set(t_fields) <= set(j_fields)
     for name, f in t_fields.items():
         t_default, j_default = f.default, j_fields[name].default
@@ -189,16 +189,22 @@ def test_spec_fields_are_the_references():
 
 
 def test_backend_validated_and_passed_to_the_simulator():
-    """'scan', 'batched' and 'loop' build simulators of that backend;
-    'async' (not ported: ROADMAP.md queue 1, item 12) and unknown names
-    raise at construction."""
+    """'scan', 'batched', 'loop' and 'async' (with its async_spec) build
+    simulators of that backend; 'async' without an async_spec and unknown
+    names raise at construction, 'async' with the reference's message."""
     spec = t_exp.get("mnist_smoke")
     assert spec.backend == j_exp.get("mnist_smoke").backend == "scan"
+    assert t_exp.BACKENDS == ("scan", "batched", "loop", "async")
     for backend in t_exp.BACKENDS:
-        assert spec.replace(backend=backend).build(
+        extra = ({"async_spec": t_exp.AsyncSpec(buffer_size=2)}
+                 if backend == "async" else {})
+        assert spec.replace(backend=backend, **extra).build(
             device="cpu").backend == backend
-    with pytest.raises(ValueError, match="queue 1, item 12"):
+    with pytest.raises(ValueError, match="requires async_spec") as e:
         spec.replace(backend="async")
+    with pytest.raises(ValueError) as j_e:
+        j_exp.get("mnist_smoke").replace(backend="async")
+    assert str(e.value) == str(j_e.value)
     with pytest.raises(ValueError, match="unknown backend"):
         spec.replace(backend="pmap")
     with pytest.raises(ValueError, match="backend='async'"):

@@ -160,6 +160,25 @@ def test_phase3_times_the_sampled_rounds_own_products():
             "tiles", "panel")
 
 
+def test_phase3_times_the_async_events_own_products():
+    """The `async_*` cases of chip_smoke.py's phase 3 are products of one
+    async event's local step (phase 20: compressed mnist_paper on the
+    event queue under `stragglers`, at that scenario's plan), at batch 1,
+    of exactly their shape and layout: the `loop_*` classes at the async
+    path's batch size."""
+    spec = experiment.get("mnist_paper")
+    spec = spec.replace(
+        fed=dataclasses.replace(spec.fed, compress_updates=True),
+        scenario="stragglers")
+    products = _products("mnist_cnn", spec.resolve_fed().batch_size)
+    cases = _fold_cases()
+    mine = {k: v for k, v in cases.items() if k.startswith("async_")}
+    assert {k.removeprefix("async_") for k in mine} == {
+        k.removeprefix("loop_") for k in cases if k.startswith("loop_")}
+    for name, case in mine.items():
+        assert case == (1, *products[name.removeprefix("async_")]), name
+
+
 def test_instances_are_the_kernel_sources():
     """ops.INSTANCES lists the .cu's FOLD_INSTANCES, in its id order."""
     src = ops.SOURCE.read_text()

@@ -27,7 +27,8 @@ ROOT = PKG.parent.parent
 # The port's scripts outside the package: they import nothing of JAX or of
 # the reference either.
 SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
-           ROOT / "examples" / "defl_vs_fedavg_torch.py"]
+           ROOT / "examples" / "defl_vs_fedavg_torch.py",
+           ROOT / "examples" / "async_vs_sync_torch.py"]
 MODULES = sorted(
     ".".join(("repro_torch",) + p.relative_to(PKG).with_suffix("").parts)
     .removesuffix(".__init__")
@@ -63,6 +64,9 @@ def test_importing_every_module_leaves_jax_and_repro_out():
             "repro_torch.federated.simulation",
             "repro_torch.federated.experiment",
             "repro_torch.federated.study"} <= set(MODULES)
+    # The asynchronous backend's own module (AsyncSpec, the twin, the
+    # oracle), a numpy copy of the reference's.
+    assert "repro_torch.federated.events" in MODULES
 
 
 def test_no_source_imports_jax_or_repro():
@@ -83,10 +87,14 @@ def test_no_source_imports_jax_or_repro():
 def test_entry_points_default_to_cuda_and_never_fall_back():
     spec = experiment.get("mnist_smoke")
     sampled = experiment.get("mnist_sampled")
+    asyn = experiment.get("mnist_async")
     cfg = get_config("qwen2-0.5b", smoke=True)
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"
         assert spec.build().device.type == "cuda"
+        sim = asyn.build()
+        assert sim.device.type == "cuda"
+        assert sim.init().async_c["t_finish"].device.type == "cuda"
         for backend in ("scan", "batched"):
             assert sampled.replace(backend=backend).build(
             ).device.type == "cuda"
@@ -106,6 +114,12 @@ def test_entry_points_default_to_cuda_and_never_fall_back():
     for backend in ("scan", "batched"):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             sampled.replace(backend=backend).build()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        asyn.build()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        simulation.Simulator(None, {}, lambda s: [], [], spec.fed, None,
+                             None, backend="async",
+                             async_spec=asyn.async_spec)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         study.Study(arms=[("A", spec)], max_rounds=1).run()
     with pytest.raises(RuntimeError, match="device='cpu'"):
