@@ -20,8 +20,9 @@ Phases (each prints its own lines; any failure exits non-zero):
   3. kernels: each kernel against its plain PyTorch version on the card,
      on several cases and at its main paths' shapes (quantize: exact
      equality, timed at the FL shapes of phases 4, 10, 11, 18 and 20 (a
-     loop client's or an async event's 1,628 rows) and 19 (a sampled
-     round's 50 x 1,628), also on the device alone (torch.profiler); flash
+     loop client's or an async event's 1,628 rows), 19 (a sampled
+     round's 50 x 1,628) and 21 (a trace-driven round's 12 x 1,628), also
+     on the device alone (torch.profiler); flash
      attention: atol 2e-6 in float32 (the CUDA-core kernel), 2e-2 in bf16
      (the wgmma + TMA kernel), at head_dims 32, 64, 80, 128 and 256, timed
      at the prefill shapes of qwen2-0.5b, gemma-7b and zamba2-2.7b's shared
@@ -203,11 +204,36 @@ Phases (each prints its own lines; any failure exits non-zero):
      matmul's and quantize's ms an event) and
      `examples/async_vs_sync_torch.py --quick --scenario stragglers`
      with its table; none of (g) a gate.
+ 21. trace-driven fleets and the online planner: (a) compressed
+     `mnist_diurnal` (the `diurnal_edge` fleet of phones, tablets and IoT
+     gateways with diurnal availability and battery and thermal gates,
+     M = 12, its own plan) at the paper CNN's full width, 6 rounds in two
+     chunks: one quantize launch a round over 12 x 1,628 rows, the fold
+     matmul, no other kernel; participants, clock and uplink bits equal
+     to a host recomputation from the trace stream's `draw_chunk` on the
+     same population and seed; some round has fewer than 12
+     participants; finite losses; (b) 3 rounds, `save_state`,
+     `load_state` into a fresh simulator, 3 more: bit for bit against
+     (a)'s 6 (the trace's battery, thermal and RNG state ride the
+     snapshot); (c) `record_trace("diurnal_edge", 12, 8)` into a
+     temporary directory, replayed through `ExperimentSpec(trace=
+     TraceSpec(path))` at full width: 6 rounds whose participants are the
+     recorded arrivals; a 2-arm Study on that spec (the DEFL plan and
+     FedAvg at b = 10, V = 20) forms one group, each member against its
+     run alone over 3 rounds (records exact, loss within 1e-5 relative,
+     params within 5e-4); (d) compressed `mnist_diurnal` at its
+     registered size on the card and on the CPU from the same model and
+     noise: records exact, losses and params within phase 5's bounds; (e)
+     `examples/planner_service_demo_torch.py --quick --check` with its
+     table; (f) steady-state s/round of (a) beside phase 4's, the host's
+     trace draws a chunk and a profiled window (busy share, kernels by
+     device time, the fold matmul's and quantize's ms a round); none of
+     (e)'s timing or (f) a gate.
 
-Phases 10, 11, 12, 18, 19, 20 and 17 run right after phase 5, in that
+Phases 10, 11, 12, 18, 19, 20, 21 and 17 run right after phase 5, in that
 order, phases 13-16 after phase 9; quantize's `launches` in the JSON line
 are those of phases 4, 10, 11, 12 (a, b, c's guarded run and d), 17 (b),
-18, 19 and 20, the fold matmul's those of the same FL paths and of the
+18, 19, 20 and 21, the fold matmul's those of the same FL paths and of the
 quickstart twin and 17 (a, c), flash attention's
 those of phases 6, 13 and 15 (24 + 28 + 9). The last lines are the
 kernels' JSON record, the card's name and power limit, and
@@ -219,6 +245,7 @@ import dataclasses
 import gc
 import json
 import math
+import pickle
 import re
 import statistics
 import subprocess
@@ -465,7 +492,8 @@ def phase_flash_sass():
 
 QUANTIZE_SHAPES = {"slice_16280x1024": 16280, "cifar_21100x1024": 21100,
                    "fleet_65120x1024": 65120, "loop_1628x1024": 1628,
-                   "sampled_81400x1024": 81400}
+                   "sampled_81400x1024": 81400,
+                   "diurnal_19536x1024": 19536}
 
 
 def quantize_cases(dev):
@@ -488,8 +516,9 @@ def quantize_cases(dev):
     # 1,628 rows of 1024, cifar_paper's 10 x 2,110, and a fleet of 4
     # mnist_paper runs, 4 x 10 x 1,628; then one launch a participating
     # client on the loop backend (phase 18) and one an arrival event on the
-    # async backend (phase 20): 1,628 rows; and a sampled round's cohort of
-    # 50 lanes (phase 19): 50 x 1,628.
+    # async backend (phase 20): 1,628 rows; a sampled round's cohort of
+    # 50 lanes (phase 19): 50 x 1,628; and a trace-driven round of
+    # mnist_diurnal's 12 clients at full width (phase 21): 12 x 1,628.
     for name, rows in QUANTIZE_SHAPES.items():
         cases[name] = torch.randn(rows, 1024, generator=g) * 1e-3
     return {k: v.to(dev) for k, v in cases.items()}
@@ -1075,29 +1104,41 @@ def phase_fl_main_path(counters, name="mnist_paper", tag="slice",
             "busy": busy / wall, "history": res.history}
 
 
-def phase_fl_reference():
-    """mnist_smoke on the card and on the CPU, on a small input."""
+def _card_and_cpu(counters, spec, rounds, eval_every):
+    """`spec` run for `rounds` on the card and on the CPU from the same
+    model and the same quantizer noise (one CPU generator's draws, moved
+    to each device): ({"cuda": (state, result), "cpu": (state, result)},
+    the card run's launches); the card result's params are copied to the
+    CPU."""
     import torch
-    from repro_torch.federated import experiment
     from repro_torch.kernels.quantize import ref
-    from repro_torch.utils.tree import leaves
-    smoke = experiment.get("mnist_smoke")
-    smoke = smoke.replace(fed=dataclasses.replace(smoke.fed,
-                                                  compress_updates=True))
-    out = {}
+    from repro_torch.utils.tree import tree_map
+    out, launches = {}, None
     for d in ("cuda", "cpu"):
         noise_gen = torch.Generator().manual_seed(7)
 
         def noise(_generator, shape, d=d, noise_gen=noise_gen):
             return ref.stochastic_noise(noise_gen, shape).to(d)
 
-        s = smoke.build(device=d, noise=noise)
-        _, r = s.run(s.init(), max_rounds=3, eval_every=2)
-        out[d] = r
+        sim = spec.build(device=d, noise=noise)
+        out[d], n = _launched(counters, lambda: sim.run(
+            sim.init(), max_rounds=rounds, eval_every=eval_every))
+        launches = n if d == "cuda" else launches
+    st, res = out["cuda"]
+    out["cuda"] = (st, dataclasses.replace(res, params=tree_map(
+        lambda x: x.cpu(), res.params)))
+    return out, launches
+
+
+def phase_fl_reference(counters):
+    """mnist_smoke on the card and on the CPU, on a small input."""
+    from repro_torch.utils.tree import leaves
+    runs, _ = _card_and_cpu(counters, compressed_spec("mnist_smoke"), 3, 2)
+    out = {d: res for d, (_, res) in runs.items()}
     losses = [[h.train_loss for h in out[d].history] for d in ("cuda", "cpu")]
     worst_loss = max(abs(a - b) / abs(b) for a, b in zip(*losses))
     worst_param = max(
-        float((a.cpu() - b).abs().max())
+        float((a - b).abs().max())
         for a, b in zip(leaves(out["cuda"].params), leaves(out["cpu"].params)))
     print(f"[reference] mnist_smoke cuda vs cpu: losses {losses[0]} vs "
           f"{losses[1]}, max rel loss gap {worst_loss:.2e}, max param gap "
@@ -2016,22 +2057,9 @@ def phase_sampled_reference(counters):
     CPU from the same model and quantizer noise: cohorts (the host streams
     and the clients whose data advanced), clock, bits and participants
     exact; losses and params within phase 5's tolerances."""
-    import torch
-    from repro_torch.kernels.quantize import ref
     from repro_torch.utils.tree import leaves
-    spec = compressed_spec("mnist_sampled")
-    out = {}
-    for d in ("cuda", "cpu"):
-        noise_gen = torch.Generator().manual_seed(7)
-
-        def noise(_generator, shape, d=d, noise_gen=noise_gen):
-            return ref.stochastic_noise(noise_gen, shape).to(d)
-
-        sim = spec.build(device=d, noise=noise)
-        out[d], launches = _launched(counters, lambda: sim.run(
-            sim.init(), max_rounds=4, eval_every=2))
-        if d == "cuda":
-            card_launches = launches
+    out, card_launches = _card_and_cpu(
+        counters, compressed_spec("mnist_sampled"), 4, 2)
     (c_st, c_res), (h_st, h_res) = out["cuda"], out["cpu"]
     _check_quantize_rounds("sampled", card_launches, 4)
     exact = (_records(c_res) == _records(h_res)
@@ -2039,7 +2067,7 @@ def phase_sampled_reference(counters):
              and repr(c_st.data) == repr(h_st.data))
     loss = max(abs(a.train_loss - b.train_loss) / abs(b.train_loss)
                for a, b in zip(c_res.history, h_res.history))
-    param = max(float((a.cpu() - b).abs().max())
+    param = max(float((a - b).abs().max())
                 for a, b in zip(leaves(c_res.params), leaves(h_res.params)))
     print(f"[sampled] (e) mnist_sampled card vs CPU, 4 rounds: launches "
           f"{card_launches}; cohorts, clock, bits and participants exact "
@@ -2306,28 +2334,9 @@ def phase_async_reference(counters):
     """20 (d): compressed mnist_async on the card and on the CPU from the
     same model and quantizer noise: records exact, losses and params
     within phase 5's bounds."""
-    import torch
-    from repro_torch.federated import experiment
-    from repro_torch.kernels.quantize import ref
-    from repro_torch.utils.tree import tree_map
-    spec = experiment.get("mnist_async")
-    spec = spec.replace(fed=dataclasses.replace(spec.fed,
-                                                compress_updates=True))
-    out, launches = {}, None
-    for d in ("cuda", "cpu"):
-        noise_gen = torch.Generator().manual_seed(7)
-
-        def noise(_generator, shape, d=d, noise_gen=noise_gen):
-            return ref.stochastic_noise(noise_gen, shape).to(d)
-
-        sim = spec.build(device=d, noise=noise)
-        (_, out[d]), n = _launched(counters, lambda: sim.run(
-            sim.init(), max_rounds=4, eval_every=2))
-        launches = n if d == "cuda" else launches
-    card_res = out["cuda"]
-    out["cuda"] = dataclasses.replace(card_res, params=tree_map(
-        lambda x: x.cpu(), card_res.params))
-    exact, loss, param, same = _gaps(out["cuda"], out["cpu"])
+    runs, launches = _card_and_cpu(counters, compressed_spec("mnist_async"),
+                                   4, 2)
+    exact, loss, param, same = _gaps(runs["cuda"][1], runs["cpu"][1])
     print(f"[async] (d) mnist_async cuda vs cpu, 4 aggregations: records "
           f"exact {exact}, max rel loss gap {loss:.2e}, max param gap "
           f"{param:.2e}, bit for bit {same}; card launches {launches}",
@@ -2453,6 +2462,274 @@ def phase_async_cost(counters, card, paper):
           f"stragglers on the card: {time.perf_counter() - t0:.2f} s, "
           f"launches {ex_launches}", flush=True)
     return [launches, ex_launches]
+
+
+# -- trace-driven fleets and the online planner (phase 21) -------------------------
+
+# (a), (b), (f): compressed mnist_diurnal at the paper CNN's full width;
+# (c): a recorded diurnal_edge trace of TRACE_RECORD rounds replayed under
+# it, and a 2-arm Study on that replay of TRACE_STUDY_ROUNDS rounds.
+TRACE_ROUNDS, TRACE_RECORD, TRACE_STUDY_ROUNDS = 6, 8, 3
+
+
+def diurnal_spec(**kw):
+    """Compressed mnist_diurnal at full width (phase 21 (a))."""
+    return compressed_spec("mnist_diurnal").replace(
+        model="mnist_cnn", n_train=1500, n_test=400, with_eval=False, **kw)
+
+
+def _trace_twin(sim, rounds):
+    """Per-round (participants, sim_time, uplink bits) of `sim`'s first
+    `rounds` rounds from init(), recomputed on the host from its
+    scenario's own stream (draw_chunk) on the same population and seed,
+    with the delay model's Eq. 6 and Eq. 8."""
+    from repro_torch.core import delay
+    from repro_torch.federated import compression, scenarios
+    scen = scenarios.get(sim.scenario)
+    chunk = scen.stream(sim.pop, seed=sim.fed.seed).draw_chunk(rounds)
+    bits = float(compression.compressed_bits(sim.params(sim.init())))
+    t_cp = delay.per_client_compute_time(sim.fed.batch_size, sim.pop.G,
+                                         sim.pop.f)
+    t_cm = delay.per_client_uplink_time(bits, sim.wireless, sim.pop.p,
+                                        chunk.h)
+    T_cm, T_cp = delay.chunk_round_times(t_cp, t_cm, chunk.clock_mask)
+    out, t = [], 0.0
+    for r in range(rounds):
+        t += delay.round_time(float(T_cm[r]), float(T_cp[r]),
+                              sim.fed.local_rounds)
+        n = int(chunk.mask[r].sum())
+        out.append((n, t, n * bits))
+    return out
+
+
+def _participation(hist):
+    return [(r.n_participants, r.sim_time, r.uplink_bits) for r in hist]
+
+
+def phase_trace(counters, card):
+    """21 (a): compressed mnist_diurnal at full width, 6 rounds in two
+    chunks: one quantize launch a round over M x rows, the fold matmul, no
+    other kernel; participants, clock and bits equal to the host's
+    recomputation from the trace stream; presence gated in some round;
+    finite losses."""
+    import torch
+    from repro_torch.federated import compression
+    from repro_torch.utils.tree import leaves
+    spec = diurnal_spec()
+    plan = spec.resolve_plan()
+    sim = _on_card(spec.build(), "trace-driven mnist_diurnal")
+    M = sim.fed.n_devices
+    rows = M * compression.n_rows(sim.params(sim.init()))
+    print(f"[trace] (a) mnist_diurnal at full width: {spec.model}, scenario "
+          f"{spec.scenario} (phone/tablet/IoT classes, diurnal waves, "
+          f"battery and thermal gates), M={M}, plan b*={plan.b} V={plan.V}, "
+          f"compressed", flush=True)
+    t0 = time.perf_counter()
+    ((state, res), q_rows), launches = _launched(
+        counters, lambda: _quantize_rows(lambda: sim.run(
+            sim.init(), max_rounds=TRACE_ROUNDS, eval_every=3)))
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    hist = res.history
+    for r in hist:
+        print(f"[trace] round {r.round}: participants {r.n_participants}/{M} "
+              f"sim_time={r.sim_time!r}s train_loss={r.train_loss:.6f} "
+              f"uplink_bits={r.uplink_bits:.0f}")
+    twin = _trace_twin(sim, TRACE_ROUNDS)
+    same = _participation(hist) == twin
+    print(f"[trace] (a) {len(hist)} rounds in {elapsed:.3f} s on {card} "
+          f"(warm-up included), launches {launches}, quantize rows "
+          f"{q_rows}; participants, clock and bits equal to the host's "
+          f"recomputation from draw_chunk {same}", flush=True)
+    _check_quantize_rounds("trace", launches, len(hist))
+    if q_rows != [rows] * len(hist) or len(hist) != TRACE_ROUNDS:
+        raise SystemExit(f"[trace] expected {TRACE_ROUNDS} quantize launches "
+                         f"of {rows} rows, got {q_rows}")
+    others = {k: n for k, n in launches.items() if k not in FL_KERNELS and n}
+    if others or not launches["fold_matmul"]:
+        raise SystemExit(f"[trace] the trace path launched other kernels, "
+                         f"or not the fold matmul: {launches}")
+    if not same:
+        raise SystemExit(f"[trace] the records differ from the host's "
+                         f"recomputation: {_participation(hist)} vs {twin}")
+    if min(r.n_participants for r in hist) >= M:
+        raise SystemExit("[trace] the trace gated no client in 6 rounds")
+    if not all(math.isfinite(r.train_loss) for r in hist) or not all(
+            bool(torch.isfinite(p).all()) for p in leaves(res.params)):
+        raise SystemExit("[trace] non-finite loss or params")
+    return launches, (sim, state, res)
+
+
+def phase_trace_checkpoint(counters, straight):
+    """21 (b): 3 rounds, save_state, load_state into a fresh simulator, 3
+    more: records, params and the trace's stream snapshot bit for bit
+    against (a)'s 6 rounds straight."""
+    import tempfile
+    from repro_torch.federated.simulation import load_state, save_state
+    sim, end, whole = straight
+    spec = diurnal_spec()
+
+    def resume():
+        mid, head = sim.run(sim.init(), max_rounds=3)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = str(Path(tmp) / "trace.pkl")
+            save_state(path, mid)
+            fresh = _on_card(spec.build(), "resumed mnist_diurnal")
+            restored = load_state(path, like=fresh.init())
+        st, tail = fresh.run(restored, max_rounds=3)
+        return st, head.history + tail.history, mid.stream
+
+    (st, hist, mid_stream), launches = _launched(counters, resume)
+    fields = RECORD_FIELDS + ("train_loss",)
+    same = (_params_same(whole.params, sim.params(st))
+            and [[getattr(r, f) for f in fields] for r in hist]
+            == [[getattr(r, f) for f in fields] for r in whole.history]
+            and pickle.dumps(st.stream) == pickle.dumps(end.stream))
+    print(f"[trace] (b) 3 rounds, save_state (trace tick "
+          f"{mid_stream['trace']['tick']}), load_state into a fresh "
+          f"simulator, 3 more: records, params and the stream's snapshot "
+          f"bit for bit against 6 straight {same}; launches {launches}",
+          flush=True)
+    _check_quantize_rounds("trace-resume", launches, 6)
+    if not same:
+        raise SystemExit("[trace] the checkpoint does not resume bit for bit")
+    return launches
+
+
+def phase_trace_replay(counters, card):
+    """21 (c): record_trace('diurnal_edge', M, 8) into a temporary
+    directory, the full-width spec replaying it (scenario=None, trace=
+    TraceSpec(path)): 6 rounds whose participants are the recorded
+    present-minus-lost counts; then a 2-arm Study on that spec (the DEFL
+    plan and FedAvg at Fig. 2's fixed b = 10, V = 20) that forms one
+    group, each member against its run alone over 3 rounds (records exact,
+    loss within 1e-5 relative, params within 5e-4)."""
+    import tempfile
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.federated.study import Study
+    from repro_torch.federated.traces import TraceSpec, record_trace
+    base = diurnal_spec()
+    M = base.fed.n_devices
+    out = []
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "diurnal.jsonl")
+        record_trace("diurnal_edge", M, TRACE_RECORD, path, seed=5)
+        with open(path) as fh:
+            recs = [json.loads(line) for line in fh][1:]
+        want = [len(set(r["present"]) - set(r.get("lost", ())))
+                for r in recs][:TRACE_ROUNDS]
+        spec = base.replace(scenario=None, trace=TraceSpec(path))
+        sim = _on_card(spec.build(), "replayed trace")
+        (_, res), launches = _launched(counters, lambda: sim.run(
+            sim.init(), max_rounds=TRACE_ROUNDS, eval_every=3))
+        got = [r.n_participants for r in res.history]
+        print(f"[trace] (c) record_trace('diurnal_edge', {M}, {TRACE_RECORD})"
+              f" replayed at full width ({spec.scenario_ref().name}): "
+              f"participants {got}, recorded present-minus-lost {want}, "
+              f"launches {launches}", flush=True)
+        _check_quantize_rounds("trace-replay", launches, TRACE_ROUNDS)
+        if got != want:
+            raise SystemExit("[trace] the replay's participants differ from "
+                             "the recorded arrivals")
+        out.append(launches)
+        fedavg = FedConfig(n_devices=M, batch_size=10,
+                           theta=float(math.exp(-20 / 2.0)), nu=2.0, lr=0.05,
+                           compress_updates=True)
+        study = Study(arms=[("DEFL", spec),
+                            ("FedAvg", spec.replace(plan=False, fed=fedavg))],
+                      seeds=(0,), max_rounds=TRACE_STUDY_ROUNDS)
+        sims = {label: _on_card(s, f"trace study arm {label}")
+                for label, s in study.build_sims().items()}
+        res, launches = _launched(counters, lambda: study.run(sims=sims))
+        print(f"[trace] (c) 2-arm Study on the replay on {card}: groups "
+              f"{res.groups}, launches {launches}", flush=True)
+        if res.groups != (("DEFL", "FedAvg"),):
+            raise SystemExit("[trace] the arms on one trace did not form one "
+                             "group")
+        _check_quantize_rounds("trace-study", launches, TRACE_STUDY_ROUNDS)
+        out.append(launches)
+        for label, s in sims.items():
+            (_, alone), n = _launched(counters, lambda: s.run(
+                s.init(0), max_rounds=TRACE_STUDY_ROUNDS))
+            out.append(n)
+            exact, loss, param, same = _gaps(res[label][0], alone)
+            print(f"[trace] (c) {label} b={s.fed.batch_size} "
+                  f"V={s.fed.local_rounds}: member vs alone over "
+                  f"{TRACE_STUDY_ROUNDS} rounds: records exact {exact}, "
+                  f"loss gap {loss:.3g}, params gap {param:.3g}, "
+                  f"bit-identical {same}", flush=True)
+            if not exact or loss > FLEET_LOSS_RTOL or param > FLEET_PARAM_ATOL:
+                raise SystemExit(f"[trace] study member {label} breaks the "
+                                 "member contract against its run alone")
+    return out
+
+
+def phase_trace_reference(counters):
+    """21 (d): compressed mnist_diurnal at its registered size on the card
+    and on the CPU from the same model and quantizer noise: records exact,
+    losses and params within phase 5's bounds."""
+    runs, launches = _card_and_cpu(counters, compressed_spec("mnist_diurnal"),
+                                   4, 2)
+    card_res = runs["cuda"][1]
+    exact, loss, param, same = _gaps(card_res, runs["cpu"][1])
+    print(f"[trace] (d) mnist_diurnal cuda vs cpu, 4 rounds: participants "
+          f"{[r.n_participants for r in card_res.history]}, records exact "
+          f"{exact}, max rel loss gap {loss:.2e}, max param gap {param:.2e}, "
+          f"bit for bit {same}; card launches {launches}", flush=True)
+    if not exact or loss > 1e-5 or param > 5e-4:
+        raise SystemExit("the card's trace-driven run disagrees with the "
+                         "CPU's")
+    _check_quantize_rounds("trace-reference", launches, 4)
+    return launches
+
+
+def phase_planner_demo():
+    """21 (e): the planner demo twin, --quick --check, with its table (the
+    planner is numpy on the host: no kernel launches)."""
+    example = _load_example("planner_service_demo_torch")
+    t0 = time.perf_counter()
+    example.main(["--quick", "--check"])
+    print(f"[trace] (e) examples/planner_service_demo_torch.py --quick "
+          f"--check: {time.perf_counter() - t0:.2f} s on the host", flush=True)
+
+
+def phase_trace_cost(counters, card, paper, straight):
+    """21 (f): steady-state s/round of (a)'s spec beside phase 4's
+    mnist_paper, the host's trace draws a chunk (TraceStream.draw_chunk)
+    and a profiled window of 3 rounds (none a gate)."""
+    sim, state, _ = straight
+    state, s_round, runs = _steady(sim, state)
+    print(f"[trace] (f) steady state on {card}: {s_round!r} s per round "
+          f"(median of {len(runs)} chunks of 3, no eval: {runs!r}); phase "
+          f"4's mnist_paper {paper['s_per_round']!r}", flush=True)
+    from repro_torch.federated import scenarios
+    scen = scenarios.get(sim.scenario)
+    draws = []
+    for _ in range(7):
+        stream = scen.stream(sim.pop, seed=sim.fed.seed)
+        t0 = time.perf_counter()
+        stream.draw_chunk(3)
+        draws.append(time.perf_counter() - t0)
+    print(f"[trace] (f) the host's trace draws a chunk of 3 rounds "
+          f"(TraceStream.draw_chunk, M={sim.fed.n_devices}): median "
+          f"{statistics.median(draws)!r} s ({statistics.median(draws) / 3 / s_round:.2%} "
+          f"of a round)", flush=True)
+    for ops in counters.values():
+        ops.launches = 0
+    _, wall, busy, top = profiled(lambda: sim.run(state, max_rounds=3))
+    launches = {k: ops.launches for k, ops in counters.items()}
+    print(f"[trace] (f) profiled 3 rounds on {card}: wall {wall:.4f} s, "
+          f"device busy {busy:.4f} s ({busy / wall:.1%}; idle "
+          f"{1 - busy / wall:.1%}), launches {launches}, profiler on",
+          flush=True)
+    for kname, sec in top[:6]:
+        print(f"[trace]   {sec / 3 * 1e3:9.3f} ms/round {sec / busy:6.1%}  "
+              f"{kname[:90]}")
+    quant = sum(sec for kname, sec in top if "quantize_rows" in kname)
+    print(f"[trace]   quantize kernel: {quant / 3 * 1e3:.4f} ms/round, "
+          f"{quant / busy:.1%} of device time", flush=True)
+    print_fold_time("trace", top, busy, 3)
+    return launches
 
 
 # -- the Study: DEFL vs FedAvg vs Rand (phase 17) ------------------------------------
@@ -3157,7 +3434,7 @@ def main() -> int:
     # -- 4, 5. the FL path and its reference ---------------------------------
     paper = phase_fl_main_path(counters, card=card)
     fl_launches = [paper["launches"]]
-    phase_fl_reference()
+    phase_fl_reference(counters)
 
     # -- 10, 11. cifar_paper; the fleet and the quickstart twin --------------
     fl_launches.append(phase_fl_main_path(counters, "cifar_paper", "cifar",
@@ -3201,6 +3478,19 @@ def main() -> int:
     phase_async_no_sync(paper_async)
     fl_launches.extend(phase_async_cost(counters, card, paper))
     del paper_async
+
+    # -- 21. trace-driven fleets and the online planner --------------------------
+    t21 = time.perf_counter()
+    launches, straight = phase_trace(counters, card)
+    fl_launches.append(launches)
+    fl_launches.append(phase_trace_checkpoint(counters, straight))
+    fl_launches.extend(phase_trace_replay(counters, card))
+    fl_launches.append(phase_trace_reference(counters))
+    phase_planner_demo()
+    fl_launches.append(phase_trace_cost(counters, card, paper, straight))
+    del straight
+    print(f"[trace] phase 21 took {time.perf_counter() - t21:.1f} s",
+          flush=True)
 
     # -- 17. the Study: DEFL vs FedAvg vs Rand -------------------------------
     fig2, fig2_launches = phase_fig2(counters, card)

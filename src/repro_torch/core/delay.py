@@ -3,9 +3,8 @@
 Deterministic numpy functions of device and channel parameters: the
 simulator draws a heterogeneous device population and evaluates these,
 and the KKT optimizer (core/kkt.py) inverts them. Units: seconds, Hz,
-watts, bits. Copy of the part of repro/core/delay.py that the simulator
-(with its scenario and fault paths) and the DEFL plans use; the
-arithmetic is the reference's, so clocks are bit-identical to it.
+watts, bits. Copy of repro/core/delay.py; the arithmetic is the
+reference's, so clocks are bit-identical to it.
 """
 from __future__ import annotations
 
@@ -33,6 +32,11 @@ def cycles_per_iteration(cc: ComputeConfig) -> float:
     return cc.cycles_per_bit * cc.bits_per_sample
 
 
+def local_compute_time(b: float, G_m: float, f_m: float) -> float:
+    """Eq. 4: T_cp^m = G_m * b / f_m (one mini-batch SGD iteration)."""
+    return G_m * b / f_m
+
+
 def per_client_compute_time(
     b: float, G: Sequence[float], f: Sequence[float],
 ) -> np.ndarray:
@@ -56,6 +60,12 @@ def uplink_rate(wc: WirelessConfig, p_m, h_m):
     n0_w = 10 ** (wc.noise_dbm_per_hz / 10.0) * 1e-3 * wc.bandwidth_hz
     snr = p_m * h_m / n0_w
     return wc.bandwidth_hz * np.log2(1.0 + snr)
+
+
+def uplink_time(update_bits: float, wc: WirelessConfig, p_m: float,
+                h_m: float) -> float:
+    """Eq. 6: T_cm^m = s / rate."""
+    return update_bits / uplink_rate(wc, p_m, h_m)
 
 
 def per_client_uplink_time(
@@ -109,7 +119,7 @@ def effective_uplink_times(
 
 
 # ---------------------------------------------------------------------------
-# Round time (Eq. 8)
+# Round / overall time (Eq. 8, Eq. 13)
 # ---------------------------------------------------------------------------
 
 
@@ -166,6 +176,11 @@ def chunk_round_times(
     return mmax(t_cm), mmax(t_cp)
 
 
+def overall_time(H: float, T: float) -> float:
+    """Eq. 13: the overall time H * T."""
+    return H * T
+
+
 # ---------------------------------------------------------------------------
 # Device population (heterogeneity draw for the simulator)
 # ---------------------------------------------------------------------------
@@ -213,3 +228,12 @@ def draw_population(
         p=np.full(n_devices, wc.tx_power_w),
         h=h,
     )
+
+
+def population_round_times(
+    pop: DevicePopulation, b: float, update_bits: float, wc: WirelessConfig,
+) -> tuple[float, float]:
+    """(T_cm, T_cp) for a population at batch size b (Eqs. 5, 7)."""
+    T_cp = round_compute_time(b, pop.G, pop.f)
+    T_cm = round_comm_time(update_bits, wc, pop.p, pop.h)
+    return T_cm, T_cp

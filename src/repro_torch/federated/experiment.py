@@ -15,10 +15,11 @@ faults, wireless, plan-or-fed — with `build()` materializing the
         population=PopulationSpec(M=10_000, cohort=CohortSpec(K=50)))
     asim = experiment.get("mnist_async").build()  # the event queue
     state, records = asim.run_events(asim.init(), events=11)
+    dsim = experiment.get("mnist_diurnal").build()  # a trace-driven fleet
+    replay = spec.replace(scenario=None, trace=TraceSpec("fleet.jsonl"))
 
-The reference's fields for traces and the kernel implementation switch
-are not here: the port runs no traces yet (ROADMAP.md, queue 1), and it
-picks a kernel's form by the tensor's device.
+The fields are the reference's but its kernel implementation switch
+(`impl`): the port picks a kernel's form by the tensor's device.
 
 The plan, the data, the partition and the device population are the
 reference's, value for value (numpy copies of its numpy code).
@@ -46,6 +47,7 @@ from repro_torch.federated.partition import (partition_dirichlet,
                                              partition_sizes,
                                              partition_virtual)
 from repro_torch.federated.simulation import BACKENDS, Simulator
+from repro_torch.federated.traces import TraceSpec, replay_scenario
 from repro_torch.kernels.quantize.ref import stochastic_noise
 from repro_torch.models import cnn
 from repro_torch.optim.sgd import sgd
@@ -169,6 +171,12 @@ class ExperimentSpec:
     scenario       registered edge-scenario name (scenarios.py) or a
                    scenarios.Scenario, or None; draws the population and
                    the per-round participation/channel stream.
+    trace          optional traces.TraceSpec: replay a recorded JSONL
+                   device-state log as the scenario source (deterministic
+                   presence/loss/channel overlay on the unchanged
+                   backends). Mutually exclusive with `scenario`; the
+                   error names both fields. `scenario_ref()` resolves
+                   whichever is set.
     faults         optional faults.FaultModel overriding (or adding to)
                    the scenario's failure semantics — deadlines, uplink
                    retransmission, crash/rejoin, guards, quorum. None
@@ -203,6 +211,7 @@ class ExperimentSpec:
     alpha: float = 1.0
     seed: int = 0
     scenario: Optional[Union[str, scenarios.Scenario]] = None
+    trace: Optional[TraceSpec] = None
     faults: Optional[FaultModel] = None
     heterogeneity: float = 0.0
     compute: ComputeConfig = CALIBRATED_COMPUTE
@@ -216,12 +225,20 @@ class ExperimentSpec:
     async_spec: Optional[AsyncSpec] = None
 
     def __post_init__(self):
+        # The knobs that exclude each other fail here, naming the fields,
+        # before any build() cost is paid (the reference's checks, the
+        # trace's first).
+        if self.trace is not None and self.scenario is not None:
+            raise ValueError(
+                f"ExperimentSpec: trace={self.trace.name!r} and scenario="
+                f"{self.scenario!r} are mutually exclusive (fields "
+                "scenario, trace) — a TraceSpec replays its own recorded "
+                "device-state stream, so a registry scenario cannot also "
+                "drive the population; drop one of them")
         if self.backend not in BACKENDS:
             raise ValueError(
                 f"ExperimentSpec: unknown backend {self.backend!r}; "
                 f"expected one of {BACKENDS}")
-        # The knobs that exclude each other fail here, naming the fields,
-        # before any build() cost is paid (the reference's checks).
         if self.backend == "async" and self.async_spec is None:
             raise ValueError(
                 "ExperimentSpec: backend='async' requires async_spec="
@@ -274,8 +291,12 @@ class ExperimentSpec:
         return self.model
 
     def scenario_ref(self) -> Union[str, scenarios.Scenario, None]:
-        """The scenario this spec runs (the reference also resolves a
-        trace here, which the port does not take yet)."""
+        """The scenario source this spec runs: the ReplayScenario of
+        `trace` when set, else `scenario`, else None. Every scenario
+        consumer (faults, population, plan, build) resolves through this,
+        so a trace-driven spec rides the same paths as a registry one."""
+        if self.trace is not None:
+            return replay_scenario(self.trace)
         return self.scenario
 
     def effective_faults(self) -> Optional[FaultModel]:
@@ -560,6 +581,12 @@ register("mnist_async", ExperimentSpec(
     scenario="stragglers", backend="async",
     async_spec=AsyncSpec(buffer_size=4, staleness="poly"),
     label="mnist_async"))
+register("mnist_diurnal", ExperimentSpec(
+    fed=FedConfig(n_devices=12, epsilon=0.01, nu=2.0, c=CALIBRATED_C,
+                  lr=0.05),
+    model="mnist_cnn_small", dataset="mnist", n_train=240, n_test=80,
+    scenario="diurnal_edge", plan=True,
+    label="mnist_diurnal"))
 register("mnist_storm", ExperimentSpec(
     fed=FedConfig(n_devices=10, epsilon=0.01, nu=2.0, c=CALIBRATED_C,
                   lr=0.05),

@@ -19,7 +19,7 @@ Registry access is by name (`scenarios.get("stragglers")`). Copy of
 repro/federated/scenarios.py (numpy only, the reference's RNG calls in
 its order; tests/test_torch_scenarios.py holds every registered
 scenario's draws equal to the reference's). The `TraceRound` overlay hook
-stays, unused until the reference's traces.py is ported.
+is traces.py's: its device-class and replay streams override it.
 """
 from __future__ import annotations
 

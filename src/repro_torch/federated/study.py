@@ -16,7 +16,8 @@ the frozen value form of the whole comparison:
 
 `run()` does not loop over arms. Arms are grouped by *shape signature*
 (model, client count M, dataset, partition and population draw, the
-PopulationSpec and its cohorts, scenario, faults, lr, compression):
+PopulationSpec and its cohorts, scenario or trace, faults, lr,
+compression):
 everything the group's chunk
 function or its shared inputs depend on EXCEPT the per-arm (b, V) plan.
 Each group runs as ONE folded fleet over its (arm x seed) members, on
@@ -86,14 +87,14 @@ PARAM_ATOL = 5e-4
 def _group_signature(spec: ExperimentSpec, fed) -> tuple:
     """Everything that shapes a group's chunk function or its shared
     inputs (model, data, partition and population draw, the PopulationSpec
-    with its cohorts, client sharding, scenario, the effective FaultModel,
-    backend, lr, compression) EXCEPT the per-arm (b, V)
+    with its cohorts, client sharding, scenario or trace, the effective
+    FaultModel, backend, lr, compression) EXCEPT the per-arm (b, V)
     plan, which the envelope absorbs, and the plan constants (epsilon,
     nu, c) that only exist to derive it. The guard and quorum are built
     into the group's chunk, and the fault inputs (deadlines, attempts)
     are per-arm host values that must agree across a group's members."""
     return (spec.model, spec.dataset, spec.n_train, spec.n_test, spec.alpha,
-            spec.seed, spec.scenario, spec.effective_faults(),
+            spec.seed, spec.scenario, spec.trace, spec.effective_faults(),
             spec.heterogeneity, spec.compute, spec.wireless, spec.backend,
             spec.with_eval, spec.population, spec.shard_clients,
             fed.n_devices, fed.lr, fed.compress_updates)

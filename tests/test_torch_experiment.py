@@ -175,7 +175,7 @@ def test_spec_fields_are_the_references():
     defaults, less the ones naming subsystems the port does not run."""
     t_fields = {f.name: f for f in dataclasses.fields(t_exp.ExperimentSpec)}
     j_fields = {f.name: f for f in dataclasses.fields(j_exp.ExperimentSpec)}
-    assert set(j_fields) - set(t_fields) == {"trace", "impl"}
+    assert set(j_fields) - set(t_fields) == {"impl"}
     assert set(t_fields) <= set(j_fields)
     for name, f in t_fields.items():
         t_default, j_default = f.default, j_fields[name].default

@@ -28,7 +28,8 @@ ROOT = PKG.parent.parent
 # the reference either.
 SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
            ROOT / "examples" / "defl_vs_fedavg_torch.py",
-           ROOT / "examples" / "async_vs_sync_torch.py"]
+           ROOT / "examples" / "async_vs_sync_torch.py",
+           ROOT / "examples" / "planner_service_demo_torch.py"]
 MODULES = sorted(
     ".".join(("repro_torch",) + p.relative_to(PKG).with_suffix("").parts)
     .removesuffix(".__init__")
@@ -67,6 +68,10 @@ def test_importing_every_module_leaves_jax_and_repro_out():
     # The asynchronous backend's own module (AsyncSpec, the twin, the
     # oracle), a numpy copy of the reference's.
     assert "repro_torch.federated.events" in MODULES
+    # The trace-driven fleets and the online planner, numpy copies of the
+    # reference's.
+    assert {"repro_torch.federated.traces",
+            "repro_torch.federated.planner"} <= set(MODULES)
 
 
 def test_no_source_imports_jax_or_repro():

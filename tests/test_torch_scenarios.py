@@ -48,16 +48,16 @@ from repro_torch.utils.tree import leaves
 LOSS_RTOL = 1e-5
 PARAM_ATOL = 5e-4
 ROUNDS = 6
-# The seven scenarios scenarios.py registers; the reference's registry
-# also holds `diurnal_edge`, which its traces.py registers (not ported).
+# The seven scenarios scenarios.py registers and `diurnal_edge`, which
+# traces.py registers (experiment.py imports it).
 NAMES = t_scen.names()
 PLAN_FIELDS = ("b", "theta", "V", "H_pred", "T_cm", "T_cp", "T_round",
                "overall_pred", "update_bits")
 
 
 def test_registry_is_the_references():
-    assert len(NAMES) == 7
-    assert [n for n in j_scen.names() if n not in NAMES] == ["diurnal_edge"]
+    assert len(NAMES) == 8
+    assert NAMES == j_scen.names()
     for name in NAMES:
         j, t = j_scen.get(name), t_scen.get(name)
         j_fields = dataclasses.asdict(j)
