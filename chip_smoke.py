@@ -25,8 +25,8 @@ Phases (each prints its own lines; any failure exits non-zero):
      on the device alone (torch.profiler); flash
      attention: atol 2e-6 in float32 (the CUDA-core kernel), 2e-2 in bf16
      (the wgmma + TMA kernel), at head_dims 32, 64, 80, 128 and 256, timed
-     at the prefill shapes of qwen2-0.5b, gemma-7b and zamba2-2.7b's shared
-     block;
+     at the prefill shapes of qwen2-0.5b, gemma-7b, zamba2-2.7b's shared
+     block and musicgen-large;
      selective scan: 3e-5 of max(1, max |plain|); fold matmul: 1e-4 of
      max(1, max |plain|) against torch.matmul at the Fig. 2 MNIST Study
      group's product shapes and at compressed `mnist_paper`'s own (the
@@ -229,13 +229,39 @@ Phases (each prints its own lines; any failure exits non-zero):
      trace draws a chunk and a profiled window (busy share, kernels by
      device time, the fold matmul's and quantize's ms a round); none of
      (e)'s timing or (f) a gate.
+ 22. serve path: `musicgen-large` at full width and depth (3.26e9 random
+     weights drawn on the card, 13.0 GB): B=4 prompts of 2048 x 4
+     codebook tokens, 32 generated, tokens (4, 32, 4); the flash kernel at
+     head_dim 64 (48 launches in the prefill, none in decode); the gates
+     of phase 6;
+ 23. serve reference: as phase 7, for the `musicgen-large` smoke config,
+     without and with a conditioning prefix (prefill(prefix_embeds=)); in
+     bf16 a codebook token may flip card vs CPU only at a near-tie;
+ 24. training: (a) `launch/train.py` at `qwen2-0.5b`'s full width on the
+     card (`--clients 2 --batch 8 --seq 128 --V 2 --rounds 2 --defl`: the
+     plan's b* = 256 capped at 64 takes the batch's place), impl="kernel":
+     the DEFL plan line equal to a host recomputation from the analytic
+     parameter count, 24 x V x clients x rounds = 192 flash launches (the
+     forward; the backward is the plain version's VJP), the fold matmul
+     (FedAvg) and no other kernel, finite losses with round 1 within 2 of
+     ln(vocab); s/round, and a third round profiled (busy share, device
+     time by kernel); (c) the trained model's first attention layer at the
+     training shape through the kernel against the plain path, gradients
+     within 1e-5 of max |g| in float32 and 2e-2 in bf16, wq, wk, wv
+     nonzero; the selective scan under grad raises and launches nothing;
+     (d) the trained params through `checkpoint/io.py` and back, bit for
+     bit; (b) the `qwen2-0.5b` smoke config through `train.run` and the
+     `musicgen-large` smoke config (codebooks and a prefix) through its
+     local steps, card vs CPU from equal weights and batches: losses and
+     params within 1e-5 in float32, 3e-2 in bf16.
 
 Phases 10, 11, 12, 18, 19, 20, 21 and 17 run right after phase 5, in that
-order, phases 13-16 after phase 9; quantize's `launches` in the JSON line
-are those of phases 4, 10, 11, 12 (a, b, c's guarded run and d), 17 (b),
-18, 19, 20 and 21, the fold matmul's those of the same FL paths and of the
-quickstart twin and 17 (a, c), flash attention's
-those of phases 6, 13 and 15 (24 + 28 + 9). The last lines are the
+order, phases 13-16 after phase 9, then 22, 23 and 24; quantize's
+`launches` in the JSON line are those of phases 4, 10, 11, 12 (a, b, c's
+guarded run and d), 17 (b), 18, 19, 20 and 21, the fold matmul's those of
+the same FL paths, of the quickstart twin, 17 (a, c) and 24 (a)'s FedAvg,
+flash attention's those of phases 6, 13, 15, 22 and 24 (a) (24 + 28 + 9 +
+48 + 192). The last lines are the
 kernels' JSON record, the card's name and power limit, and
 {"ok": true, "device": {...}}. The script exits non-zero
 without a result when no CUDA card is available or the port's package
@@ -797,6 +823,9 @@ FLASH_CASES = {
                            256, "bfloat16", True, None, 0),
     "zamba2_shared_prefill_bf16": (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT,
                                    32, 32, 80, "bfloat16", True, None, 0),
+    # musicgen-large's prefill attention (hd 64, MHA of 32 heads).
+    "musicgen_prefill_bf16": (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 32,
+                              32, 64, "bfloat16", True, None, 0),
     # hd 256 and 80 in both kernels: causal, not causal with a ragged Sk,
     # windowed, and q_offset (Sq != Sk); the float32 kernel at one prompt
     # of the serve shapes.
@@ -829,7 +858,7 @@ FLASH_CASES = {
 }
 # The cases timed: the serve paths' prefill shapes, bf16, causal.
 FLASH_TIMED = ("qwen2_prefill_bf16", "gemma_prefill_bf16",
-               "zamba2_shared_prefill_bf16")
+               "zamba2_shared_prefill_bf16", "musicgen_prefill_bf16")
 FLASH_ATOL = {"float32": 2e-6, "bfloat16": 2e-2}
 
 
@@ -3103,7 +3132,8 @@ def phase_study_cost(card, fig2):
 # arch: (the kernel its prefill runs, a substring of that kernel's symbol in
 # the profiler, the device its weights are drawn on). qwen2-0.5b's 494M
 # weights come from a CPU generator as `serve.main` draws them; the others'
-# (falcon-mamba-7b 7.0e9, gemma-7b 8.5e9, zamba2-2.7b 2.3e9) from a CUDA
+# (falcon-mamba-7b 7.0e9, gemma-7b 8.5e9, zamba2-2.7b 2.3e9, musicgen-large
+# 3.3e9) from a CUDA
 # generator on the card (a CPU draw of 28 GB takes minutes), one layer at a
 # time into the stacked leaves.
 SERVE_ARCHS = {
@@ -3111,6 +3141,7 @@ SERVE_ARCHS = {
     "falcon-mamba-7b": ("selective_scan", "selective_scan_fwd", "cuda"),
     "gemma-7b": ("flash_attention", "flash_fwd", "cuda"),
     "zamba2-2.7b": ("flash_attention", "flash_fwd", "cuda"),
+    "musicgen-large": ("flash_attention", "flash_fwd", "cuda"),
 }
 
 
@@ -3178,14 +3209,16 @@ def phase_serve(counters, arch):
           f"(float32, {cfg.dtype} compute; param_count() "
           f"{cfg.param_count()[0]:,}), drawn on {gen_device} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    # (B, S) token ids, (B, S, K) codebook tokens for audio.
     prompts = serve.make_prompts(cfg, SERVE_BATCH, SERVE_PROMPT, seed=0)
+    tok_shape = (SERVE_BATCH, 1, *prompts.shape[2:])
     serve.generate(cfg, params, prompts, 2)  # warm-up: cuBLAS, allocator
 
     for c in counters.values():
         c.launches = 0
     res = serve.generate(cfg, params, prompts, SERVE_GEN)
     launches = {name: c.launches for name, c in counters.items()}
-    B, S = prompts.shape
+    B, S = prompts.shape[:2]
     steps = SERVE_GEN - 1
     print(f"[serve] {arch} generate B={B} prompt={S} gen={SERVE_GEN}: "
           f"prefill {res.prefill_s:.4f} s ({B * S / res.prefill_s:.1f} "
@@ -3194,8 +3227,10 @@ def phase_serve(counters, arch):
           f"{res.decode_s / steps * 1e3:.2f} ms a step), launches {launches}"
           f", peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    if tuple(res.tokens.shape) != (B, SERVE_GEN):
+    if tuple(res.tokens.shape) != (B, SERVE_GEN, *prompts.shape[2:]):
         raise SystemExit(f"generated {tuple(res.tokens.shape)} tokens")
+    print(f"[serve] {arch} tokens {tuple(res.tokens.shape)}, prefill logits "
+          f"{tuple(res.prefill_logits.shape)}", flush=True)
     if not (int(res.tokens.min()) >= 0
             and int(res.tokens.max()) < cfg.vocab_size):
         raise SystemExit("generated token ids out of the vocabulary")
@@ -3227,14 +3262,14 @@ def phase_serve(counters, arch):
     if n_prefill != per_prefill:
         raise SystemExit(f"expected {per_prefill} {kernel} launches a "
                          f"prefill, got {n_prefill}")
-    tok = logits[:, -1].argmax(dim=-1).reshape(B, 1)
+    tok = logits[:, -1].argmax(dim=-1).reshape(tok_shape)
     ops.launches = 0
     n_steps = min(8, SERVE_GEN - 1)  # within the cache's max_len
 
     def decode_steps(tok=tok):
         for _ in range(n_steps):
             out, _ = tfm.decode_step(cfg, params, cache, tok)
-            tok = out[:, 0].argmax(dim=-1).reshape(B, 1)
+            tok = out[:, 0].argmax(dim=-1).reshape(tok_shape)
         return tok
 
     _, wall, busy, top = profiled(decode_steps)
@@ -3256,7 +3291,8 @@ def phase_serve(counters, arch):
     scale = float(plain.prefill_logits.abs().max())
     rel_l2 = float((res.prefill_logits - plain.prefill_logits).norm()
                    / plain.prefill_logits.norm())
-    same_first = int((res.tokens[:, 0] == plain.tokens[:, 0]).sum())
+    same_first = int((res.tokens[:, 0] == plain.tokens[:, 0]).reshape(
+        B, -1).all(dim=1).sum())
     print(f"[serve] {arch} prefill logits kernel vs plain: max abs gap "
           f"{gap:.4g} of max |logit| {scale:.4g} ({gap / scale:.2%}; tol "
           f"{SERVE_LOGIT_TOL:.0%}), relative L2 {rel_l2:.3g}, first token "
@@ -3277,7 +3313,8 @@ def phase_serve(counters, arch):
           f"{SERVE_F32_PROMPT}: max abs gap {gap:.4g} of max |logit| "
           f"{scale:.4g} ({gap / scale:.3g}; tol {SERVE_F32_LOGIT_TOL:g}), "
           f"first token equal in "
-          f"{int((got.tokens == want.tokens).sum())}/{B} rows", flush=True)
+          f"{int((got.tokens == want.tokens).flatten(1).all(dim=1).sum())}"
+          f"/{B} rows", flush=True)
     if not gap <= SERVE_F32_LOGIT_TOL * scale:
         raise SystemExit("kernel and plain float32 prefill logits disagree")
     return launches
@@ -3289,7 +3326,11 @@ def phase_serve(counters, arch):
 # (falcon-mamba-7b's decode state is float32). bf16: 3e-2 for both.
 SERVE_REF_F32_TOL = {"qwen2-0.5b": (1e-5, 1e-4),
                      "falcon-mamba-7b": (1e-5, 1e-5),
-                     "gemma-7b": (1e-5, 1e-4), "zamba2-2.7b": (1e-5, 1e-4)}
+                     "gemma-7b": (1e-5, 1e-4), "zamba2-2.7b": (1e-5, 1e-4),
+                     # A bf16 cache element a rounding step apart moves the
+                     # decode logits of 4 codebook heads by up to 1.5e-4
+                     # (tests/test_torch_musicgen.py).
+                     "musicgen-large": (1e-5, 1e-3)}
 
 
 def smoke_variants(arch):
@@ -3304,6 +3345,10 @@ def smoke_variants(arch):
             n_heads=2, n_kv_heads=2, head_dim=256)}
     if arch == "zamba2-2.7b":
         variants["smoke hd80"] = {"d_model": 160, "shared_attn_heads": 2}
+    if arch == "musicgen-large":
+        # The smoke config again, with a conditioning prefix through
+        # prefill(prefix_embeds=) (not a ModelConfig field).
+        variants["smoke prefix"] = {}
     return variants
 
 
@@ -3317,12 +3362,14 @@ def phase_serve_reference(arch):
 
 def serve_reference(arch, variant, kw):
     """One smoke config, card vs CPU. In bf16 a head-dim variant (not the
-    arch's own smoke config) may flip a greedy token where the CPU's two
-    candidates are a near-tie: the flip must be at a step where the CPU's
-    logits of the card's token and of its own lie within the bf16
-    tolerance of each other, and the last logits are compared on the rows
-    whose tokens all agree (at least one), as the CPU tests compare them
-    with the reference (tests/test_torch_transformer.py)."""
+    arch's own smoke config) or a musicgen-large config may flip a greedy
+    token where the CPU's two candidates are a near-tie: the flip must be
+    at a step where the CPU's logits of the card's token and of its own lie
+    within the bf16 tolerance of each other, and the last logits are
+    compared on the rows whose tokens all agree (at least one), as the CPU
+    tests compare them with the reference (tests/test_torch_transformer.py).
+    The "smoke prefix" variant passes a (B, prefix_len, embed_dim)
+    conditioning prefix to generate (prefill(prefix_embeds=))."""
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.launch import serve
@@ -3335,12 +3382,21 @@ def serve_reference(arch, variant, kw):
                               device="cpu")
         gpu = tree_map(lambda t: t.cuda(), cpu)
         prompts = serve.make_prompts(cfg, 3, 150, seed=4)
-        out = {"cuda": serve.generate(cfg, gpu, prompts, 4),
-               "cpu": serve.generate(cfg, cpu, prompts, 4, device="cpu")}
-        agree = (out["cuda"].tokens.cpu() == out["cpu"].tokens).all(dim=1)
+        prefix = None
+        if variant == "smoke prefix":
+            m = cfg.modality
+            prefix = torch.randn((3, m.prefix_len, m.embed_dim),
+                                 generator=torch.Generator().manual_seed(5))
+        out = {"cuda": serve.generate(cfg, gpu, prompts, 4,
+                                      prefix_embeds=prefix),
+               "cpu": serve.generate(cfg, cpu, prompts, 4, device="cpu",
+                                     prefix_embeds=prefix)}
+        agree = (out["cuda"].tokens.cpu() == out["cpu"].tokens).flatten(
+            1).all(dim=1)
         rows, flips = torch.ones_like(agree), ""
-        if dtype == "bfloat16" and variant != "smoke" and not agree.all():
-            flips = near_tie_flips(cfg, cpu, prompts, out)
+        if (dtype == "bfloat16" and (variant != "smoke" or cfg.modality)
+                and not agree.all()):
+            flips = near_tie_flips(cfg, cpu, prompts, out, prefix=prefix)
             rows = agree
             if not rows.any():
                 raise SystemExit(f"serve {arch} {variant}: no row's tokens "
@@ -3367,29 +3423,301 @@ def serve_reference(arch, variant, kw):
             raise SystemExit("float32 greedy tokens differ, card vs CPU")
 
 
-def near_tie_flips(cfg, cpu_params, prompts, out, tol=3e-2):
-    """Each row whose greedy tokens differ card vs CPU: its first differing
-    step t must be a near-tie on the CPU, |logit(card's token) -
-    logit(CPU's token)| <= tol * max(1, max |logit|) of the CPU's logits at
-    step t (a generate of t + 1 tokens). Returns a line for the print."""
+def near_tie_flips(cfg, cpu_params, prompts, out, tol=3e-2, prefix=None):
+    """Each row whose greedy tokens differ card vs CPU: at its first
+    differing step t, each differing token (each codebook's, for audio)
+    must be a near-tie on the CPU, |logit(card's token) - logit(CPU's
+    token)| <= tol * max(1, max |logit|) of the CPU's logits at step t (a
+    generate of t + 1 tokens). Returns a line for the print."""
     import torch
     from repro_torch.launch import serve
     card, host = out["cuda"].tokens.cpu(), out["cpu"].tokens
+    B, gen = card.shape[:2]
+    card, host = card.reshape(B, gen, -1), host.reshape(B, gen, -1)
     notes = []
-    for r in torch.nonzero((card != host).any(dim=1)).flatten().tolist():
-        t = int(torch.nonzero(card[r] != host[r])[0])
-        res = serve.generate(cfg, cpu_params, prompts, t + 1, device="cpu")
+    for r in torch.nonzero((card != host).flatten(1).any(dim=1)).flatten(
+            ).tolist():
+        t = int(torch.nonzero((card[r] != host[r]).any(dim=1))[0])
+        res = serve.generate(cfg, cpu_params, prompts, t + 1, device="cpu",
+                             prefix_embeds=prefix)
         logits = (res.prefill_logits if t == 0 else res.last_logits)[r, -1]
-        gap = float(logits[host[r, t]] - logits[card[r, t]])
-        scale = max(1.0, float(logits.abs().max()))
-        notes.append(f"row {r} step {t}: card token {int(card[r, t])}, CPU "
-                     f"token {int(host[r, t])}, CPU logit gap "
-                     f"{gap / scale:.3g} of scale")
-        if not gap <= tol * scale:
-            raise SystemExit(f"serve {cfg.name}: a greedy token flips card vs "
-                             f"CPU where the CPU's logits are no near-tie: "
-                             f"{notes[-1]}")
+        logits = logits.reshape(-1, cfg.vocab_size)  # (K or 1, V)
+        for k in torch.nonzero(card[r, t] != host[r, t]).flatten().tolist():
+            gap = float(logits[k, host[r, t, k]] - logits[k, card[r, t, k]])
+            scale = max(1.0, float(logits[k].abs().max()))
+            notes.append(f"row {r} step {t} head {k}: card token "
+                         f"{int(card[r, t, k])}, CPU token "
+                         f"{int(host[r, t, k])}, CPU logit gap "
+                         f"{gap / scale:.3g} of scale")
+            if not gap <= tol * scale:
+                raise SystemExit(f"serve {cfg.name}: a greedy token flips "
+                                 f"card vs CPU where the CPU's logits are no "
+                                 f"near-tie: {notes[-1]}")
     return "; near-tie flips: " + "; ".join(notes)
+
+
+# -- training (phase 24) ---------------------------------------------------------
+
+# (a): launch/train.py at qwen2-0.5b's full width, as a user runs it. With
+# --defl the plan's batch (b* = 256 at 1.98 GB of update, capped at 64)
+# replaces --batch 8; V = 2 stays.
+TRAIN_ARGV = ["--arch", "qwen2-0.5b", "--clients", "2", "--batch", "8",
+              "--seq", "128", "--V", "2", "--rounds", "2", "--defl"]
+# (b): the smoke configs trained card vs CPU from equal weights and
+# batches: (loss relative, params of each leaf's largest |value|). float32
+# as tests/test_torch_train.py holds the port to the reference; bf16 at the
+# serve references' 3e-2 (the bf16 flash kernel against the plain version
+# in float32, each output rounded once).
+TRAIN_REF_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (3e-2, 3e-2)}
+# (c): one attention layer's gradients through the kernel against the plain
+# path, of the largest |gradient| (tests/test_torch_train_cuda.py).
+ATTN_GRAD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+def phase_train(counters, card, dev):
+    """24 (a): train.py at qwen2-0.5b's full width on the card. Returns
+    (the kernels' launches in its 2 rounds, the trainer)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import train
+    args = train.build_parser().parse_args(TRAIN_ARGV + ["--device",
+                                                         str(dev)])
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    trainer = train.Trainer(args)
+    setup_s = time.perf_counter() - t0
+    for _ in range(args.rounds):
+        trainer.run_round()
+    torch.cuda.synchronize()
+    launches = {name: c.launches for name, c in counters.items()}
+    res, cfg = trainer.result, trainer.cfg
+    # The plan from the analytic parameter count on the host (numpy only),
+    # not from the card's tree.
+    _, want_line = train.plan_fed(args, cfg.param_count()[0] * 32)
+    b = trainer.iters[0].batch
+    per_round = cfg.n_layers * trainer.V * args.clients
+    round1 = float(np.mean(res.losses[0]))
+    print(f"[train] {cfg.name} at full width ({cfg.param_count()[0]:,} "
+          f"float32 parameters, {cfg.dtype} compute, impl=kernel): "
+          f"{args.clients} clients x V={trainer.V} steps of batch {b} x "
+          f"{args.seq + 1} tokens, {args.rounds} rounds; set-up (init on the "
+          f"CPU, token streams) {setup_s:.2f} s; s/round {res.wall_s}; "
+          f"losses by round {[r.tolist() for r in res.losses]}; round 1 "
+          f"mean {round1:.4f} vs ln(vocab) {math.log(cfg.vocab_size):.4f}; "
+          f"sim_time {res.sim_time}; launches {launches}; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+    print(f"[train] plan line {res.plan_line!r}, host recomputation "
+          f"{want_line!r}", flush=True)
+    if res.plan_line != want_line:
+        raise SystemExit("the DEFL plan line differs from its host "
+                         "recomputation")
+    if launches["flash_attention"] != per_round * args.rounds:
+        raise SystemExit(f"expected {per_round * args.rounds} flash launches "
+                         f"(24 layers x V x clients x rounds), got "
+                         f"{launches['flash_attention']}")
+    if launches["fold_matmul"] < args.rounds or launches["quantize"] or \
+            launches["selective_scan"]:
+        raise SystemExit(f"training launched other kernels, or no FedAvg "
+                         f"fold matmul: {launches}")
+    if not all(np.isfinite(r).all() for r in res.losses) or not abs(
+            round1 - math.log(cfg.vocab_size)) < 2.0:
+        raise SystemExit("training losses are not finite, or round 1 is not "
+                         "within 2 of ln(vocab)")
+    # One more round, profiled: busy share and device time by kernel.
+    n = counters["flash_attention"].launches
+    _, wall, busy, top = profiled(trainer.run_round)
+    flash_s = sum(sec for name, sec in top if "flash_fwd" in name)
+    print(f"[train] profiled round: wall {wall:.4f} s, device busy "
+          f"{busy:.4f} s ({busy / wall:.1%}; idle {1 - busy / wall:.1%}), "
+          f"flash kernel {flash_s * 1e3:.3f} ms = {flash_s / busy:.1%} of "
+          f"device time over {counters['flash_attention'].launches - n} "
+          f"launches, profiler on; on {card}", flush=True)
+    for name, sec in top[:10]:
+        print(f"[train]   {sec * 1e3:9.3f} ms {sec / busy:6.1%}  {name[:90]}")
+    return launches, trainer
+
+
+def _leaf_gap(a, b):
+    """The largest |a - b| of any leaf over that leaf's largest |b|."""
+    from repro_torch.utils.tree import leaves
+    return max(float((x.cpu().float() - y.float()).abs().max())
+               / (float(y.float().abs().max()) or 1.0)
+               for x, y in zip(leaves(a), leaves(b)))
+
+
+def _audio_steps(cfg, params, batches, device):
+    """V local SGD steps of one client on (V, B, S, K) codebook batches
+    with a prefix (client.make_local_update over the loss's
+    value_and_grad): (params', the V losses)."""
+    from repro_torch.federated.client import make_local_update
+    from repro_torch.launch import train
+    from repro_torch.optim import sgd
+    from repro_torch.utils.tree import tree_map
+    update = make_local_update(train.value_and_grad_fn(cfg), sgd(0.05))
+    p, _, losses = update(params, (), tree_map(lambda t: t.to(device),
+                                              batches))
+    return p, losses.cpu()
+
+
+def phase_train_reference(counters, dev):
+    """24 (b): the qwen2-0.5b smoke config through train.run and the
+    musicgen-large smoke config (codebooks and a prefix) through its local
+    steps, card vs CPU from equal weights and batches, float32 and bf16."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as tfm
+    from repro_torch.utils.tree import tree_map
+    argv = ["--smoke", "--rounds", "2", "--clients", "2", "--batch", "2",
+            "--seq", "32", "--V", "2", "--defl"]
+    for dtype, (loss_tol, param_tol) in TRAIN_REF_TOL.items():
+        cfg = get_config("qwen2-0.5b", smoke=True).replace(dtype=dtype)
+        cpu = tfm.init_params(cfg, torch.Generator().manual_seed(6),
+                              device="cpu")
+        n = counters["flash_attention"].launches
+        got = train.run(argv + ["--device", str(dev)],
+                        params=tree_map(lambda t: t.to(dev), cpu), cfg=cfg)
+        n = counters["flash_attention"].launches - n
+        want = train.run(argv + ["--device", "cpu"], params=cpu, cfg=cfg)
+        loss_gap = float(np.max(np.abs(np.stack(got.losses)
+                                       - np.stack(want.losses))
+                                / np.abs(np.stack(want.losses))))
+        param_gap = _leaf_gap(got.params, want.params)
+        print(f"[train] qwen2-0.5b smoke {dtype} card vs CPU, 2 rounds x 2 "
+              f"clients x V=2: losses {loss_gap:.3g} relative (tol "
+              f"{loss_tol:g}), params {param_gap:.3g} of scale (tol "
+              f"{param_tol:g}), sim_time equal {got.sim_time == want.sim_time}"
+              f", {n} flash launches", flush=True)
+        if not (loss_gap <= loss_tol and param_gap <= param_tol
+                and got.sim_time == want.sim_time and n == 2 * 2 * 2 * 2):
+            raise SystemExit(f"qwen2 smoke training {dtype}: card and CPU "
+                             f"disagree")
+
+        cfg = get_config("musicgen-large", smoke=True).replace(dtype=dtype)
+        m = cfg.modality
+        g = torch.Generator().manual_seed(7)
+        cpu = tfm.init_params(cfg, g, device="cpu")
+        batches = {"tokens": torch.randint(0, cfg.vocab_size,
+                                           (2, 2, 33, m.n_codebooks),
+                                           generator=g),
+                   "prefix_embeds": torch.randn((2, 2, m.prefix_len,
+                                                 m.embed_dim), generator=g)}
+        n = counters["flash_attention"].launches
+        p_card, l_card = _audio_steps(
+            cfg, tree_map(lambda t: t.to(dev), cpu), batches, dev)
+        n = counters["flash_attention"].launches - n
+        p_cpu, l_cpu = _audio_steps(cfg, cpu, batches, "cpu")
+        loss_gap = float(((l_card - l_cpu).abs() / l_cpu.abs()).max())
+        param_gap = _leaf_gap(p_card, p_cpu)
+        print(f"[train] musicgen-large smoke {dtype} (prefix {m.prefix_len}, "
+              f"{m.n_codebooks} codebooks) card vs CPU, V=2 steps: losses "
+              f"{l_card.tolist()} vs {l_cpu.tolist()} ({loss_gap:.3g} "
+              f"relative), params {param_gap:.3g} of scale, {n} flash "
+              f"launches", flush=True)
+        if not (loss_gap <= loss_tol and param_gap <= param_tol
+                and n == 2 * cfg.n_layers):
+            raise SystemExit(f"musicgen smoke training {dtype}: card and "
+                             f"CPU disagree")
+
+
+def phase_train_grads(counters, trainer, dev):
+    """24 (c): one qwen2-0.5b attention layer (the trained model's layer 0,
+    at the training batch's shape) through the kernel against the plain
+    path, float32 and bf16; wq, wk, wv must get nonzero gradients. Then the
+    selective scan under grad must raise and launch nothing."""
+    import torch
+    from repro_torch.kernels.selective_scan import ops as ss_ops
+    from repro_torch.models import attention
+    from repro_torch.utils.tree import tree_map
+    cfg = trainer.cfg
+    p0 = tree_map(lambda t: t[0, 0].detach(), trainer.result.params["layers"]
+                  ["attn"])
+    B, S = trainer.iters[0].batch, trainer.args.seq + 1
+    g = torch.Generator(device=dev).manual_seed(8)
+    x32 = torch.randn((B, S, cfg.d_model), generator=g, device=dev)
+    up32 = torch.randn((B, S, cfg.d_model), generator=g, device=dev)
+    pos = torch.arange(S, device=dev)[None].expand(B, S)
+    for dtype, tol in ATTN_GRAD_TOL.items():
+        x, up = (t.to(getattr(torch, dtype)) for t in (x32, up32))
+        grads = {}
+        for impl in ("kernel", "plain"):
+            p = tree_map(lambda t: t.clone().requires_grad_(True), p0)
+            n = counters["flash_attention"].launches
+            out = attention.attention_forward(p, x, cfg.attention, pos, impl)
+            names = sorted(p)
+            gs = torch.autograd.grad(out, [p[k] for k in names], up)
+            grads[impl] = dict(zip(names, gs))
+            launched = counters["flash_attention"].launches - n
+            if launched != (impl == "kernel"):
+                raise SystemExit(f"{impl} attention launched flash "
+                                 f"{launched} times (forward and backward)")
+        gaps = {k: float((grads["kernel"][k].float()
+                          - grads["plain"][k].float()).abs().max())
+                / float(grads["plain"][k].float().abs().max())
+                for k in grads["plain"]}
+        sizes = {k: float(grads["kernel"][k].abs().max())
+                 for k in ("wq", "wk", "wv")}
+        print(f"[train] qwen2-0.5b attention layer ({B}, {S}, "
+              f"{cfg.d_model}) {dtype}: gradients through the kernel vs the "
+              f"plain path, of max |g|: "
+              + ", ".join(f"{k} {v:.3g}" for k, v in sorted(gaps.items()))
+              + f" (tol {tol:g}); max |g| of wq, wk, wv {sizes}", flush=True)
+        if not all(v <= tol for v in gaps.values()) or not all(
+                sizes.values()):
+            raise SystemExit(f"attention gradients through the kernel "
+                             f"({dtype}) disagree with the plain path or are "
+                             f"zero")
+    # The scan has no backward: under grad it raises and launches nothing.
+    D, N = 64, 16
+    xs = torch.randn((1, 32, D), generator=g, device=dev, requires_grad=True)
+    dt = torch.rand((1, 32, D), generator=g, device=dev)
+    bc = torch.randn((1, 32, N), generator=g, device=dev)
+    n = ss_ops.launches
+    try:
+        ss_ops.selective_scan(xs, dt, -torch.ones((D, N), device=dev), bc,
+                              bc, torch.ones(D, device=dev))
+    except RuntimeError as e:
+        print(f"[train] selective scan under grad raised, {ss_ops.launches - n}"
+              f" launches: {str(e)[:110]}...", flush=True)
+    else:
+        raise SystemExit("the selective scan ran under grad without a "
+                         "backward")
+    if ss_ops.launches != n:
+        raise SystemExit("the selective scan launched under grad")
+
+
+def phase_train_checkpoint(trainer):
+    """24 (d): the trained params through checkpoint/io.py and back, bit for
+    bit."""
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.utils.tree import leaves, tree_map
+    params = trainer.result.params
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "qwen2.msgpack")
+        t0 = time.perf_counter()
+        save_checkpoint(path, params, metadata={
+            "arch": trainer.cfg.name, "round": len(trainer.result.sim_time),
+            "sim_time": trainer.result.sim_time[-1]})
+        save_s = time.perf_counter() - t0
+        size = Path(path).stat().st_size
+        t0 = time.perf_counter()
+        got, meta = load_checkpoint(path, tree_map(torch.empty_like, params))
+        load_s = time.perf_counter() - t0
+    same = all(a.device == b.device and a.dtype == b.dtype
+               and torch.equal(a, b)
+               for a, b in zip(leaves(got), leaves(params)))
+    print(f"[train] checkpoint of the trained params: {size / 1e9:.3f} GB, "
+          f"saved in {save_s:.2f} s, loaded in {load_s:.2f} s, metadata "
+          f"{meta}, bit for bit: {same}", flush=True)
+    if not same or meta["round"] != len(trainer.result.sim_time):
+        raise SystemExit("the checkpoint did not load back bit for bit")
 
 
 def main() -> int:
@@ -3533,12 +3861,33 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_serve_reference(arch)
 
+    # -- 22, 23. musicgen-large serving and its reference ---------------------
+    attn_launches.append(phase_serve(counters, "musicgen-large"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_serve_reference("musicgen-large")
+
+    # -- 24. training: train.py at qwen2-0.5b's width, card vs CPU, grads,
+    # checkpoint ---------------------------------------------------------------
+    t24 = time.perf_counter()
+    train_launches, trainer = phase_train(counters, card, dev)
+    attn_launches.append(train_launches)
+    train_fold = train_launches["fold_matmul"]
+    phase_train_grads(counters, trainer, dev)
+    phase_train_checkpoint(trainer)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_reference(counters, dev)
+    print(f"[train] phase 24 took {time.perf_counter() - t24:.1f} s",
+          flush=True)
+
     records["quantize"]["launches"] = sum(n["quantize"] for n in fl_launches)
     records["flash_attention"]["launches"] = sum(
         n["flash_attention"] for n in attn_launches)
     records["selective_scan"]["launches"] = falcon_launches["selective_scan"]
-    records["fold_matmul"]["launches"] = sum(n["fold_matmul"]
-                                             for n in fl_launches)
+    records["fold_matmul"]["launches"] = sum(
+        n["fold_matmul"] for n in fl_launches) + train_fold
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}

@@ -5,7 +5,8 @@ the same seed draws the same batch indices), with `batch_from` gathering
 from tensors: the chunked path uploads the dataset to the device once
 and gathers every batch there from the drawn int32 indices, while the
 per-round backends take `next_batch`, gathered on the host. With it,
-`ClientDataPool`, the lazy per-client pool of sampled participation.
+`ClientDataPool`, the lazy per-client pool of sampled participation, and
+`token_batches`, the LM training windows of a token stream.
 """
 from __future__ import annotations
 
@@ -166,3 +167,12 @@ class ClientDataPool:
         return {"x": self.data.x, "y": self.data.y}
 
     batch_from = staticmethod(BatchIterator.batch_from)
+
+
+def token_batches(stream: np.ndarray, batch: int, seq: int, step: int,
+                  seed: int = 0) -> np.ndarray:
+    """Slice a token stream into (batch, seq+1) int32 training windows,
+    their starts drawn from seed + step (the reference's draw)."""
+    rng = np.random.default_rng(seed + step)
+    starts = rng.integers(0, len(stream) - seq - 1, batch)
+    return np.stack([stream[s:s + seq + 1] for s in starts]).astype(np.int32)

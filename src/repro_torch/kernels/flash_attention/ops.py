@@ -7,6 +7,12 @@ a failed build or launch raises: nothing gives way to the plain version.
 The kernel is built with nvcc at its first launch in the process
 (kernels/build.py).
 
+On the card the kernel runs under autograd (`_FlashAttention`): its
+forward is one launch, and its backward is the VJP of the plain version
+recomputed from the saved q, k and v, as the reference's `custom_vjp`
+(`_flash_bh_bwd`) takes the VJP of its oracle. Neither package has a
+backward kernel.
+
 Unlike the reference's wrapper (repro/kernels/flash_attention/ops.py),
 nothing is padded, transposed or repeated here: the kernel reads the
 (B, S, H, hd) layout, masks the ragged last tile, and indexes the kv head
@@ -84,15 +90,15 @@ def flash_attention(
     window: Optional[int] = None,
     q_offset: int = 0,
 ) -> torch.Tensor:
-    """GQA flash attention. Returns (B, Sq, H, hd) in q's dtype."""
-    global launches
+    """GQA flash attention. Returns (B, Sq, H, hd) in q's dtype,
+    differentiable on both devices."""
     _check(q, k, v, window, q_offset)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal, window, q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     B, Sq, H, hd = q.shape
-    Sk, KV = k.shape[1], k.shape[2]
+    Sk = k.shape[1]
     if q.dtype not in _DTYPES:
         raise TypeError(f"the CUDA flash kernel takes float32 or bfloat16, "
                         f"got {q.dtype}")
@@ -108,6 +114,31 @@ def flash_attention(
         raise ValueError("the CUDA flash kernel needs 16-byte aligned q, k, v")
     if B > 65535:
         raise ValueError(f"the CUDA flash kernel takes B <= 65535, got {B}")
+    return _FlashAttention.apply(q, k, v, causal, window, q_offset)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel's forward with the plain version's VJP as its backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (causal, window, q_offset)
+        return _launch(q, k, v, causal, window, q_offset)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = flash_attention_ref(*inputs, *ctx.args)
+        return (*torch.autograd.grad(out, inputs, g), None, None, None)
+
+
+def _launch(q, k, v, causal, window, q_offset) -> torch.Tensor:
+    """One launch of the kernel on checked CUDA tensors."""
+    global launches
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
     launch, _ = load_kernel()
     o = torch.empty_like(q)
     with torch.cuda.device(q.device):

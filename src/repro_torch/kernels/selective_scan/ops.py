@@ -11,6 +11,12 @@ Unlike the reference's wrapper (repro/kernels/selective_scan/ops.py),
 nothing is padded and a nonzero `h0` goes to the kernel itself (the
 reference sends it to its oracle). B and C may be views with strided rows
 (the split of the x projection); only their last dim must be contiguous.
+
+The kernel has no backward, in either package (the reference's Pallas
+scan has no VJP): on the card, with grad mode on and an input that
+requires grad, `selective_scan` raises RuntimeError rather than return an
+output cut from the graph. On CPU tensors the plain version is
+differentiable.
 """
 from __future__ import annotations
 
@@ -106,6 +112,13 @@ def selective_scan(
         return selective_scan_ref(x, dt, A, B, C, D, chunk=chunk, h0=h0)
     if x.device.type != "cuda":
         raise ValueError(f"selective_scan runs on cuda or cpu, not {x.device}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, dt, A, B, C, D, h0)):
+        raise RuntimeError(
+            "the CUDA selective-scan kernel has no backward (nor has the "
+            "reference's Pallas scan): it cannot run on inputs that require "
+            "grad; run it under torch.no_grad() or train on the CPU "
+            "(ROADMAP.md queue 1 item 15.7: the scan's backward)")
     Bsz, S, Dm = x.shape
     N = A.shape[1]
     if N not in STATE_SIZES:

@@ -1,19 +1,21 @@
 """The decoder stack of the LLM zoo: the attention, mamba1 and mamba2
-mixers with a dense channel mixer or none, and zamba2's tied shared
-attention block. Port of repro/models/transformer.py.
+mixers with a dense channel mixer or none, zamba2's tied shared attention
+block, the modality prefix (precomputed frame or patch embeddings through
+a linear projector) and musicgen's K summed codebook embeddings with K
+untied LM heads. Port of repro/models/transformer.py.
 
 Layer parameters are stacked (n_groups, scan_group, ...) as in the
 reference, so its parameters carry over as a plain copy (convert.py). A
 Python loop over the layers replaces the reference's `lax.scan` and remat
-(PyTorch runs eagerly; nothing here trains yet). With `shared_attn_every`
-set, one shared block (attention + MLP, parameters `params["shared"]`)
-runs after each scan group, as in the reference, with a KV cache of its
-own for each group (`cache["shared"]`).
+(PyTorch runs eagerly; training keeps every layer's activations for
+autograd). With `shared_attn_every` set, one shared block (attention +
+MLP, parameters `params["shared"]`) runs after each scan group, as in the
+reference, with a KV cache of its own for each group (`cache["shared"]`).
+`loss_fn` is the reference's next-token cross-entropy on the text (or
+codebook) positions.
 
-The reference's other branches are not ported yet and raise
-NotImplementedError naming the ROADMAP item that ports them: the MoE
-channel mixer, the modality prefix and an untied LM head. `loss_fn` waits
-for the training slice.
+The reference's MoE channel mixer is not ported yet and raises
+NotImplementedError naming the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -42,11 +44,6 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.mlp not in ("dense", "none"):
         todo.append(f"the {cfg.mlp!r} channel mixer (ROADMAP.md queue 1 item "
                     "15.4: models/moe.py)")
-    if cfg.modality:
-        todo.append("the modality prefix (ROADMAP.md queue 1 items 15.3, "
-                    "15.4)")
-    if not cfg.tie_embeddings:
-        todo.append("an untied LM head (ROADMAP.md queue 1 item 15.3)")
     if cfg.dtype not in _DTYPES:
         todo.append(f"dtype {cfg.dtype!r}")
     if todo:
@@ -82,11 +79,22 @@ def _init_layer(cfg: ModelConfig, gen: torch.Generator) -> Dict:
     return p
 
 
+def codebooks(cfg: ModelConfig) -> int:
+    """K, the parallel codebooks of an audio model (musicgen-large: 4), or
+    0 for a text model."""
+    m = cfg.modality
+    return m.n_codebooks if m and m.kind == "audio" else 0
+
+
 def init_params(cfg: ModelConfig, gen: torch.Generator, device=None) -> Dict:
     """Random float32 parameters in the reference's layout, drawn from
     `gen` on its device and moved to `device` (cuda unless "cpu" is asked
     for). The values differ from the reference's (torch's generator is not
-    JAX's threefry); the shapes and tree equal its `init_params`.
+    JAX's threefry); the shapes, scales and tree equal its `init_params`:
+    an audio model's embedding is (K, V, d), a modality adds the projector
+    {"w": (embed_dim, d), "b": (d,)}, and an untied head is `lm_head` (d,
+    V), or (K, d, V) for audio. Drawn in this order: the embedding, the
+    projector, the layers, the shared block, the LM head.
 
     Each stacked (G, sg, ...) layer leaf is allocated on `device` first and
     the layers, drawn one at a time in order, are copied into their
@@ -95,9 +103,18 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device=None) -> Dict:
     check_supported(cfg)
     dev = resolve_device(device)
     d = cfg.d_model
-    params: Dict = {
-        "embed": (torch.randn((cfg.vocab_size, d), generator=gen,
-                              device=gen.device) * 0.02).to(dev)}
+
+    def normal(shape, scale):
+        return (torch.randn(shape, generator=gen, device=gen.device)
+                * scale).to(dev)
+
+    K = codebooks(cfg)
+    embed_shape = (K, cfg.vocab_size, d) if K else (cfg.vocab_size, d)
+    params: Dict = {"embed": normal(embed_shape, 0.02)}
+    if cfg.modality:
+        e = cfg.modality.embed_dim
+        params["projector"] = {"w": normal((e, d), 1.0 / e ** 0.5),
+                               "b": torch.zeros(d, device=dev)}
     G, sg = cfg.n_scan_groups, cfg.scan_group
     for idx in range(G * sg):
         layer = _init_layer(cfg, gen)
@@ -116,6 +133,9 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device=None) -> Dict:
             "mlp": init_mlp(gen, d, 4 * d),
         })
     params["ln_f"] = init_rms_norm(d, device=dev)
+    if not cfg.tie_embeddings:
+        head_shape = (K, d, cfg.vocab_size) if K else (d, cfg.vocab_size)
+        params["lm_head"] = normal(head_shape, 1.0 / d ** 0.5)
     return params
 
 
@@ -172,28 +192,54 @@ def _channel_mix(cfg: ModelConfig, p: Dict, x):
     return x
 
 
-def embed_inputs(cfg: ModelConfig, params: Dict, tokens):
-    """Token embedding. Returns (x, prefix_len): x (B, S, d) in cfg.dtype,
-    prefix_len 0 (no modality prefix)."""
-    return params["embed"][tokens].to(_DTYPES[cfg.dtype]), 0
+def embed_inputs(cfg: ModelConfig, params: Dict, tokens, prefix_embeds=None):
+    """Token (or summed codebook) embedding with an optional projected
+    modality prefix. tokens: (B, S), or (B, S, K) for audio; prefix_embeds:
+    (B, P, embed_dim) or None. Returns (x, prefix_len): x (B, P + S, d) in
+    cfg.dtype, the prefix first.
+
+    The K codebook embeddings are summed in float32 in the reference's
+    order, ((emb[0][t0] + emb[1][t1]) + ...), then cast: the same float32
+    adds, so the sum equals the reference's exactly."""
+    dtype = _DTYPES[cfg.dtype]
+    emb = params["embed"]
+    if codebooks(cfg):
+        x = emb[0][tokens[..., 0]]
+        for k in range(1, codebooks(cfg)):
+            x = x + emb[k][tokens[..., k]]
+        x = x.to(dtype)
+    else:
+        x = emb[tokens].to(dtype)
+    if not cfg.modality or prefix_embeds is None:
+        return x, 0
+    pr = params["projector"]
+    pref = (prefix_embeds.to(torch.float32) @ pr["w"] + pr["b"]).to(dtype)
+    return torch.cat([pref, x], dim=1), prefix_embeds.shape[1]
 
 
 def compute_logits(cfg: ModelConfig, params: Dict, x):
-    """float32 logits against the tied embedding."""
+    """float32 logits: (B, S, V) against the tied embedding or the untied
+    head, (B, S, K, V) against an audio model's K heads."""
     xf = rms_norm(x, params["ln_f"], cfg.norm_eps).to(torch.float32)
-    return xf @ params["embed"].to(torch.float32).T
+    if cfg.tie_embeddings:
+        return xf @ params["embed"].to(torch.float32).T
+    head = params["lm_head"]
+    if head.dim() == 3:
+        return torch.einsum("bsd,kdv->bskv", xf, head)
+    return xf @ head
 
 
 def _positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
 
 
-def forward(cfg: ModelConfig, params: Dict, tokens, impl: str = "plain",
-            ) -> Tuple[torch.Tensor, torch.Tensor, int]:
-    """Full-sequence forward. Returns (logits, aux_loss, prefix_len); the
-    aux loss (the MoE router's in the reference) is 0 for a dense model."""
+def forward(cfg: ModelConfig, params: Dict, tokens, impl: str = "plain", *,
+            prefix_embeds=None) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Full-sequence forward over the prefix and the tokens. Returns
+    (logits, aux_loss, prefix_len); the aux loss (the MoE router's in the
+    reference) is 0 for a dense model."""
     check_supported(cfg)
-    x, prefix_len = embed_inputs(cfg, params, tokens)
+    x, prefix_len = embed_inputs(cfg, params, tokens, prefix_embeds)
     positions = _positions(x.shape[0], x.shape[1], x.device)
     for idx in range(cfg.n_layers):
         x = _layer_forward(cfg, _layer(params["layers"], cfg, idx), x,
@@ -202,6 +248,23 @@ def forward(cfg: ModelConfig, params: Dict, tokens, impl: str = "plain",
             x = _shared_block(cfg, params["shared"], x, positions, impl)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return compute_logits(cfg, params, x), aux, prefix_len
+
+
+def loss_fn(cfg: ModelConfig, params: Dict, batch: Dict, impl: str = "plain",
+            ) -> Tuple[torch.Tensor, Dict]:
+    """Next-token cross-entropy (+ the MoE aux loss, 0 here). batch:
+    {"tokens": (B, S) or (B, S, K), optionally "prefix_embeds"}. Position
+    P + t predicts token t + 1 (the prefix's positions predict nothing):
+    the mean over (B, S - 1), or (B, S - 1, K) for audio, of -log p in
+    float32. Returns (loss + aux, {"ce_loss", "aux_loss"})."""
+    tokens = batch["tokens"]
+    logits, aux, P = forward(cfg, params, tokens, impl,
+                             prefix_embeds=batch.get("prefix_embeds"))
+    logp = torch.log_softmax(logits[:, P:P + tokens.shape[1] - 1], dim=-1)
+    targets = tokens[:, 1:].to(torch.int64)
+    nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+    loss = torch.mean(nll)
+    return loss + aux, {"ce_loss": loss, "aux_loss": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -258,8 +321,9 @@ def _layer_decode(cfg: ModelConfig, p: Dict, x, pos: int, layer_cache):
 
 def decode_step(cfg: ModelConfig, params: Dict, cache: Dict, tokens,
                 ) -> Tuple[torch.Tensor, Dict]:
-    """One-token decode. tokens: (B, 1). Returns (logits (B, 1, V), cache):
-    the cache's tensors are updated in place and its `pos` advanced."""
+    """One-token decode. tokens: (B, 1), or (B, 1, K) for audio. Returns
+    (logits (B, 1, V) or (B, 1, K, V), cache): the cache's tensors are
+    updated in place and its `pos` advanced."""
     check_supported(cfg)
     x, _ = embed_inputs(cfg, params, tokens)
     pos = cache["pos"]
@@ -279,16 +343,19 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict, tokens,
 
 
 def prefill(cfg: ModelConfig, params: Dict, tokens,
-            max_len: Optional[int] = None, impl: str = "plain",
-            ) -> Tuple[torch.Tensor, Dict]:
-    """Full-sequence forward that fills all caches (in place). Returns
-    (logits of the last position (B, 1, V), cache).
+            max_len: Optional[int] = None, impl: str = "plain", *,
+            prefix_embeds=None) -> Tuple[torch.Tensor, Dict]:
+    """Full-sequence forward over the prefix and the tokens that fills all
+    caches (in place). Returns (logits of the last position, (B, 1, V) or
+    (B, 1, K, V), cache). Positions run over prefix + tokens: `max_len`
+    (default: their total) counts the prefix, and the cache's `pos` is the
+    total length.
 
     A mamba prompt needs at least d_conv - 1 tokens: a shorter one would
     leave a conv tail that decode cannot use (the reference stores it all
     the same, or fails to), so it raises ValueError."""
     check_supported(cfg)
-    x, _ = embed_inputs(cfg, params, tokens)
+    x, _ = embed_inputs(cfg, params, tokens, prefix_embeds)
     B, S = x.shape[:2]
     if cfg.mixer != "attention" and S < cfg.ssm.d_conv - 1:
         raise ValueError(f"{cfg.name}: a prompt of {S} tokens is shorter "

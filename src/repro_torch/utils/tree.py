@@ -30,7 +30,9 @@ def unflatten(like: Any, flat: List[Any]) -> Any:
         if isinstance(t, dict):
             return {k: build(t[k]) for k in sorted(t)}
         if isinstance(t, (tuple, list)):
-            return type(t)(build(x) for x in t)
+            items = [build(x) for x in t]
+            # A NamedTuple (an optimizer state) takes its fields one by one.
+            return type(t)(*items) if hasattr(t, "_fields") else type(t)(items)
         return next(it)
 
     return build(like)

@@ -19,7 +19,7 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.fold_matmul import ops as fm_ops
 from repro_torch.kernels.quantize import ops
 from repro_torch.kernels.selective_scan import ops as ss_ops
-from repro_torch.launch import serve
+from repro_torch.launch import serve, train
 from repro_torch.models import transformer as tfm
 
 PKG = pathlib.Path(repro_torch.__file__).resolve().parent
@@ -29,7 +29,8 @@ ROOT = PKG.parent.parent
 SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
            ROOT / "examples" / "defl_vs_fedavg_torch.py",
            ROOT / "examples" / "async_vs_sync_torch.py",
-           ROOT / "examples" / "planner_service_demo_torch.py"]
+           ROOT / "examples" / "planner_service_demo_torch.py",
+           ROOT / "examples" / "serve_decode_torch.py"]
 MODULES = sorted(
     ".".join(("repro_torch",) + p.relative_to(PKG).with_suffix("").parts)
     .removesuffix(".__init__")
@@ -72,6 +73,23 @@ def test_importing_every_module_leaves_jax_and_repro_out():
     # reference's.
     assert {"repro_torch.federated.traces",
             "repro_torch.federated.planner"} <= set(MODULES)
+    # musicgen-large and the training path: the config, AdamW, the
+    # checkpoint files (with the port's own msgpack codec: the msgpack
+    # package is no dependency) and the driver.
+    assert {"repro_torch.configs.musicgen_large", "repro_torch.optim.adam",
+            "repro_torch.checkpoint", "repro_torch.checkpoint.io",
+            "repro_torch.launch.train"} <= set(MODULES)
+
+
+def test_checkpoint_io_needs_no_msgpack_package():
+    code = ("import sys\nsys.modules['msgpack'] = None\n"
+            "from repro_torch.checkpoint import io\n"
+            "assert io.unpackb(io.packb({'a': [1, b'x']})) == "
+            "{'a': [1, b'x']}\n")
+    env = {"PYTHONPATH": str(PKG.parent), "PATH": "/usr/bin:/bin"}
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
 
 
 def test_no_source_imports_jax_or_repro():
@@ -109,6 +127,9 @@ def test_entry_points_default_to_cuda_and_never_fall_back():
         assert sims["A"].device.type == "cuda"
         params = tfm.init_params(cfg, torch.Generator())
         assert params["embed"].device.type == "cuda"
+        params = train.main(["--smoke", "--rounds", "1", "--clients", "1",
+                             "--batch", "2", "--seq", "16", "--V", "1"])
+        assert params["embed"].device.type == "cuda"
         return
     with pytest.raises(RuntimeError, match="device='cpu'"):
         resolve_device()
@@ -142,6 +163,11 @@ def test_entry_points_default_to_cuda_and_never_fall_back():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--arch", "falcon-mamba-7b", "--smoke", "--prompt-len",
                     "8", "--gen", "2"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "musicgen-large", "--smoke", "--prompt-len",
+                    "8", "--gen", "2"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--smoke", "--rounds", "1", "--clients", "1"])
     params = tfm.init_params(cfg, torch.Generator(), device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.generate(cfg, params, torch.zeros(1, 8, dtype=torch.int64), 2)
