@@ -24,9 +24,10 @@ Phases (each prints its own lines; any failure exits non-zero):
      round's 50 x 1,628) and 21 (a trace-driven round's 12 x 1,628), also
      on the device alone (torch.profiler); flash
      attention: atol 2e-6 in float32 (the CUDA-core kernel), 2e-2 in bf16
-     (the wgmma + TMA kernel), at head_dims 32, 64, 80, 128 and 256, timed
-     at the prefill shapes of qwen2-0.5b, gemma-7b, zamba2-2.7b's shared
-     block and musicgen-large;
+     (the wgmma + TMA kernel), at head_dims 32, 64, 80, 128 and 256 (at
+     128 also qwen3-moe-30b-a3b's GQA group of 8 and moonshot's MHA of
+     16), timed at the prefill shapes of qwen2-0.5b, gemma-7b, zamba2-2.7b's
+     shared block, musicgen-large and qwen3-moe-30b-a3b;
      selective scan: 3e-5 of max(1, max |plain|); fold matmul: 1e-4 of
      max(1, max |plain|) against torch.matmul at the Fig. 2 MNIST Study
      group's product shapes and at compressed `mnist_paper`'s own (the
@@ -253,20 +254,43 @@ Phases (each prints its own lines; any failure exits non-zero):
      bit; (b) the `qwen2-0.5b` smoke config through `train.run` and the
      `musicgen-large` smoke config (codebooks and a prefix) through its
      local steps, card vs CPU from equal weights and batches: losses and
-     params within 1e-5 in float32, 3e-2 in bf16.
+     params within 1e-5 in float32, 3e-2 in bf16; (e) `train.py --arch
+     qwen3-moe-30b-a3b --smoke`, one round: the plan line equal to its
+     host recomputation, finite losses, one flash launch a layer and
+     local step, the loss at the trained params = ce + the router's aux
+     loss (> 0); its float32 config card vs CPU within 1e-5; (f)
+     `falcon-mamba-7b`'s smoke config in float32: the loss's gradients
+     through the scan kernel (its backward the plain version's VJP)
+     within 1e-5 of the plain path's in every leaf, every mixer leaf
+     nonzero, then `train.py --arch falcon-mamba-7b --smoke` takes a round
+     (one scan launch a layer and local step);
+ 25. serve path: `qwen3-moe-30b-a3b` at its published widths (d_model
+     2048, 32/4 heads of 128, 128 experts of 768, top 8, vocab 151,936)
+     with its depth cut from 48 to 16 layers (1.06e10 float32 weights
+     drawn on the card): the gates of phase 6 (16 flash launches a
+     prefill, none in decode), and each prefill layer's capacity (640
+     slots an expert) and dropped share and the router's smallest top-k
+     margin;
+ 26. serve reference: as phase 7, for the smoke configs of
+     qwen3-moe-30b-a3b, moonshot-v1-16b-a3b, llama4-scout-17b-a16e,
+     qwen3-32b and llava-next-34b (also with a vision prefix); an MoE
+     config prints its router's smallest top-k margin and its dropped
+     shares, and in bf16 may flip a greedy token only at a near-tie.
 
 Phases 10, 11, 12, 18, 19, 20, 21 and 17 run right after phase 5, in that
-order, phases 13-16 after phase 9, then 22, 23 and 24; quantize's
+order, phases 13-16 after phase 9, then 22, 23, 24, 25 and 26; quantize's
 `launches` in the JSON line are those of phases 4, 10, 11, 12 (a, b, c's
 guarded run and d), 17 (b), 18, 19, 20 and 21, the fold matmul's those of
 the same FL paths, of the quickstart twin, 17 (a, c) and 24 (a)'s FedAvg,
-flash attention's those of phases 6, 13, 15, 22 and 24 (a) (24 + 28 + 9 +
-48 + 192). The last lines are the
+flash attention's those of phases 6, 13, 15, 22, 24 (a, e), 25 and 26's
+card runs (24 + 28 + 9 + 48 + 192 + 8 + 16 + 24), the selective scan's
+those of phases 8 and 24 (f) (64 + 8). The last lines are the
 kernels' JSON record, the card's name and power limit, and
 {"ok": true, "device": {...}}. The script exits non-zero
 without a result when no CUDA card is available or the port's package
 is missing.
 """
+import contextlib
 import dataclasses
 import gc
 import json
@@ -826,6 +850,15 @@ FLASH_CASES = {
     # musicgen-large's prefill attention (hd 64, MHA of 32 heads).
     "musicgen_prefill_bf16": (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 32,
                               32, 64, "bfloat16", True, None, 0),
+    # qwen3-moe-30b-a3b's prefill attention (hd 128, 32 heads over 4 kv
+    # heads: a GQA group of 8), its float32 prompt of phase 25's float32
+    # check, and moonshot-v1-16b-a3b's MHA of 16 heads at hd 128.
+    "qwen3moe_prefill_bf16": (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 32, 4,
+                              128, "bfloat16", True, None, 0),
+    "qwen3moe_prompt_f32": (SERVE_BATCH, 256, 256, 32, 4, 128, "float32",
+                            True, None, 0),
+    "moonshot_mha_hd128_bf16": (2, 1024, 1024, 16, 16, 128, "bfloat16", True,
+                                None, 0),
     # hd 256 and 80 in both kernels: causal, not causal with a ragged Sk,
     # windowed, and q_offset (Sq != Sk); the float32 kernel at one prompt
     # of the serve shapes.
@@ -858,7 +891,8 @@ FLASH_CASES = {
 }
 # The cases timed: the serve paths' prefill shapes, bf16, causal.
 FLASH_TIMED = ("qwen2_prefill_bf16", "gemma_prefill_bf16",
-               "zamba2_shared_prefill_bf16", "musicgen_prefill_bf16")
+               "zamba2_shared_prefill_bf16", "musicgen_prefill_bf16",
+               "qwen3moe_prefill_bf16")
 FLASH_ATOL = {"float32": 2e-6, "bfloat16": 2e-2}
 
 
@@ -3142,7 +3176,12 @@ SERVE_ARCHS = {
     "gemma-7b": ("flash_attention", "flash_fwd", "cuda"),
     "zamba2-2.7b": ("flash_attention", "flash_fwd", "cuda"),
     "musicgen-large": ("flash_attention", "flash_fwd", "cuda"),
+    "qwen3-moe-30b-a3b": ("flash_attention", "flash_fwd", "cuda"),
 }
+# Depth cuts (arch: layers served): qwen3-moe-30b-a3b's 48 layers hold
+# 3.05e10 float32 parameters (122 GB), more than the card's 80 GB; 16 of
+# them, at the published widths, hold 1.06e10 (39.5 GiB).
+SERVE_DEPTH = {"qwen3-moe-30b-a3b": 16}
 
 
 def prefill_launches(cfg):
@@ -3157,7 +3196,14 @@ def prefill_launches(cfg):
 def mixer_line(cfg):
     if cfg.mixer == "attention":
         a = cfg.attention
-        return f"{a.n_heads} heads / {a.n_kv_heads} kv of {a.head_dim}"
+        line = f"{a.n_heads} heads / {a.n_kv_heads} kv of {a.head_dim}"
+        if cfg.mlp == "moe":
+            m = cfg.moe
+            line += (f", MoE {m.n_experts} experts of {m.d_ff_expert}, top "
+                     f"{m.top_k}, capacity factor {m.capacity_factor}")
+            if m.shared_expert_d_ff:
+                line += f", shared expert of {m.shared_expert_d_ff}"
+        return line
     s = cfg.ssm
     if cfg.mixer == "mamba1":
         return f"mamba1 d_inner {s.expand * cfg.d_model} d_state {s.d_state}"
@@ -3196,6 +3242,12 @@ def phase_serve(counters, arch):
     kernel, symbol, gen_device = SERVE_ARCHS[arch]
     ops = counters[kernel]
     cfg = get_config(arch)
+    if arch in SERVE_DEPTH:
+        print(f"[serve] {arch}: depth cut from {cfg.n_layers} to "
+              f"{SERVE_DEPTH[arch]} layers, every width as published "
+              f"({cfg.param_count()[0]:,} float32 parameters at full depth "
+              f"do not fit the card)", flush=True)
+        cfg = cfg.replace(n_layers=SERVE_DEPTH[arch])
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = tfm.init_params(
@@ -3277,13 +3329,17 @@ def phase_serve(counters, arch):
           f"s, device busy {busy:.4f} s ({busy / wall:.1%}; idle "
           f"{1 - busy / wall:.1%}), {kernel} launches {ops.launches}, "
           "profiler on", flush=True)
-    for name, sec in top[:5]:
+    for name, sec in top[:8]:
         print(f"[serve]   {sec / n_steps * 1e3:9.3f} ms/step "
               f"{sec / busy:6.1%}  {name[:90]}")
     if ops.launches:
         raise SystemExit(f"decode launched the {kernel} kernel "
                          f"{ops.launches} times")
     del logits, cache
+    if cfg.mlp == "moe":
+        with moe_probe() as calls:
+            tfm.prefill(cfg, params, prompts.cuda(), impl="kernel")
+        print_moe_probe(f"{arch} prefill", cfg, calls)
 
     # The kernel path against the plain path, same weights and prompts.
     plain = serve.generate(cfg, params, prompts, 1, impl="plain")
@@ -3330,7 +3386,64 @@ SERVE_REF_F32_TOL = {"qwen2-0.5b": (1e-5, 1e-4),
                      # A bf16 cache element a rounding step apart moves the
                      # decode logits of 4 codebook heads by up to 1.5e-4
                      # (tests/test_torch_musicgen.py).
-                     "musicgen-large": (1e-5, 1e-3)}
+                     "musicgen-large": (1e-5, 1e-3),
+                     # As tests/test_torch_moe_archs.py holds them.
+                     **{arch: (1e-5, 1e-3) for arch in (
+                         "qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b",
+                         "llama4-scout-17b-a16e", "qwen3-32b",
+                         "llava-next-34b")}}
+# Phase 26: the smoke configs of the MoE family and its neighbours, card vs
+# CPU.
+MOE_FAMILY = ("qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b",
+              "llama4-scout-17b-a16e", "qwen3-32b", "llava-next-34b")
+
+
+@contextlib.contextmanager
+def moe_probe():
+    """Within the block, every call of the transformer's MoE layer records
+    its capacity C, its token count and, as device tensors (read after the
+    block, so no host sync is added), its dropped share and the router's
+    smallest top-k margin: the least gap, over the tokens, between the
+    k-th and the (k+1)-th largest router probability (float32, from the
+    layer's own input). A margin near 0 is a near-tie, where float32 sums
+    in another order can change an expert."""
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+    inner, calls = tfm.moe_forward, []
+
+    def recorded(p, x, cfg, act="silu", capacity_factor=None):
+        out, metrics = inner(p, x, cfg, act, capacity_factor)
+        r = moe.route(p, x.reshape(-1, x.shape[-1]), cfg, capacity_factor)
+        top = moe.top_k(r.probs, cfg.top_k + 1)[0]
+        calls.append((r.capacity, x.shape[0] * x.shape[1],
+                      metrics["drop_frac"], (top[:, -2] - top[:, -1]).min()))
+        return out, metrics
+
+    tfm.moe_forward = recorded
+    try:
+        yield calls
+    finally:
+        tfm.moe_forward = inner
+
+
+def print_moe_probe(tag, cfg, calls):
+    """One line: the prefill's capacity and dropped share in each layer (the
+    first n_layers calls), the decode steps' (the rest) largest dropped
+    share, and the smallest router margin over all calls. Returns that
+    margin."""
+    n = cfg.n_layers
+    drops = [float(d) for _, _, d, _ in calls]
+    margin = min(float(m) for *_, m in calls)
+    (C, T, *_), rest = calls[0], calls[n:]
+    line = (f"[moe] {tag}: prefill of T={T} tokens, C={C} slots an expert "
+            f"({cfg.moe.n_experts} experts, top {cfg.moe.top_k}), dropped "
+            f"share by layer {[round(d, 4) for d in drops[:n]]} (mean "
+            f"{statistics.mean(drops[:n]):.4f})")
+    if rest:
+        line += (f"; {len(rest) // n} decode steps of T={rest[0][1]}, C="
+                 f"{rest[0][0]}, largest dropped share {max(drops[n:]):.4f}")
+    print(line + f"; smallest router top-k margin {margin:.3g}", flush=True)
+    return margin
 
 
 def smoke_variants(arch):
@@ -3345,9 +3458,10 @@ def smoke_variants(arch):
             n_heads=2, n_kv_heads=2, head_dim=256)}
     if arch == "zamba2-2.7b":
         variants["smoke hd80"] = {"d_model": 160, "shared_attn_heads": 2}
-    if arch == "musicgen-large":
-        # The smoke config again, with a conditioning prefix through
-        # prefill(prefix_embeds=) (not a ModelConfig field).
+    if arch in ("musicgen-large", "llava-next-34b"):
+        # The smoke config again, with a conditioning prefix (musicgen) or
+        # patch embeddings (llava) through prefill(prefix_embeds=) (not a
+        # ModelConfig field).
         variants["smoke prefix"] = {}
     return variants
 
@@ -3355,9 +3469,11 @@ def smoke_variants(arch):
 def phase_serve_reference(arch):
     """`arch`'s smoke configs on the card and on the CPU (where the kernels'
     wrappers run their plain versions), same weights and prompts, in
-    float32 and in bf16; float32 greedy tokens identical."""
-    for variant, kw in smoke_variants(arch).items():
-        serve_reference(arch, variant, kw)
+    float32 and in bf16; float32 greedy tokens identical. Returns the
+    flash kernel's launches in the card's generates, counted from 0 just
+    before each."""
+    return sum(serve_reference(arch, variant, kw)
+               for variant, kw in smoke_variants(arch).items())
 
 
 def serve_reference(arch, variant, kw):
@@ -3368,13 +3484,21 @@ def serve_reference(arch, variant, kw):
     within the bf16 tolerance of each other, and the last logits are
     compared on the rows whose tokens all agree (at least one), as the CPU
     tests compare them with the reference (tests/test_torch_transformer.py).
-    The "smoke prefix" variant passes a (B, prefix_len, embed_dim)
-    conditioning prefix to generate (prefill(prefix_embeds=))."""
+    An MoE config may too in bf16: its router sees bf16 activations a
+    rounding step apart, and an expert swapped at a near-tie of the router
+    moves a token's output. The "smoke prefix" variant passes a (B,
+    prefix_len, embed_dim) conditioning prefix or patch embeddings to
+    generate (prefill(prefix_embeds=)). An MoE config also prints the
+    router's smallest top-k margin and the dropped share of each layer (the
+    card's run), and a float32 token that differs names that margin.
+    Returns the flash launches of the card's generates."""
     import torch
     from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention import ops as flash
     from repro_torch.launch import serve
     from repro_torch.models import transformer as tfm
     from repro_torch.utils.tree import tree_map
+    launched = 0
     for dtype, (tol_first, tol_last) in (
             ("float32", SERVE_REF_F32_TOL[arch]), ("bfloat16", (3e-2, 3e-2))):
         cfg = get_config(arch, smoke=True).replace(dtype=dtype, **kw)
@@ -3387,14 +3511,20 @@ def serve_reference(arch, variant, kw):
             m = cfg.modality
             prefix = torch.randn((3, m.prefix_len, m.embed_dim),
                                  generator=torch.Generator().manual_seed(5))
-        out = {"cuda": serve.generate(cfg, gpu, prompts, 4,
-                                      prefix_embeds=prefix),
-               "cpu": serve.generate(cfg, cpu, prompts, 4, device="cpu",
-                                     prefix_embeds=prefix)}
+        flash.launches = 0
+        with moe_probe() as calls:
+            out = {"cuda": serve.generate(cfg, gpu, prompts, 4,
+                                          prefix_embeds=prefix)}
+        launched += flash.launches
+        out["cpu"] = serve.generate(cfg, cpu, prompts, 4, device="cpu",
+                                    prefix_embeds=prefix)
+        margin = (print_moe_probe(f"{arch} {variant} {dtype} card", cfg,
+                                  calls) if calls else None)
         agree = (out["cuda"].tokens.cpu() == out["cpu"].tokens).flatten(
             1).all(dim=1)
         rows, flips = torch.ones_like(agree), ""
-        if (dtype == "bfloat16" and (variant != "smoke" or cfg.modality)
+        if (dtype == "bfloat16" and (variant != "smoke" or cfg.modality
+                                     or cfg.mlp == "moe")
                 and not agree.all()):
             flips = near_tie_flips(cfg, cpu, prompts, out, prefix=prefix)
             rows = agree
@@ -3420,7 +3550,11 @@ def serve_reference(arch, variant, kw):
               f"scale (on {int(rows.sum())}/{len(rows)} rows), tokens "
               f"identical: {same}{flips}", flush=True)
         if dtype == "float32" and not same:
-            raise SystemExit("float32 greedy tokens differ, card vs CPU")
+            raise SystemExit(
+                "float32 greedy tokens differ, card vs CPU"
+                + ("" if margin is None else
+                   f" (smallest router top-k margin {margin:.3g})"))
+    return launched
 
 
 def near_tie_flips(cfg, cpu_params, prompts, out, tol=3e-2, prefix=None):
@@ -3627,10 +3761,8 @@ def phase_train_reference(counters, dev):
 def phase_train_grads(counters, trainer, dev):
     """24 (c): one qwen2-0.5b attention layer (the trained model's layer 0,
     at the training batch's shape) through the kernel against the plain
-    path, float32 and bf16; wq, wk, wv must get nonzero gradients. Then the
-    selective scan under grad must raise and launch nothing."""
+    path, float32 and bf16; wq, wk, wv must get nonzero gradients."""
     import torch
-    from repro_torch.kernels.selective_scan import ops as ss_ops
     from repro_torch.models import attention
     from repro_torch.utils.tree import tree_map
     cfg = trainer.cfg
@@ -3671,23 +3803,151 @@ def phase_train_grads(counters, trainer, dev):
             raise SystemExit(f"attention gradients through the kernel "
                              f"({dtype}) disagree with the plain path or are "
                              f"zero")
-    # The scan has no backward: under grad it raises and launches nothing.
-    D, N = 64, 16
-    xs = torch.randn((1, 32, D), generator=g, device=dev, requires_grad=True)
-    dt = torch.rand((1, 32, D), generator=g, device=dev)
-    bc = torch.randn((1, 32, N), generator=g, device=dev)
-    n = ss_ops.launches
-    try:
-        ss_ops.selective_scan(xs, dt, -torch.ones((D, N), device=dev), bc,
-                              bc, torch.ones(D, device=dev))
-    except RuntimeError as e:
-        print(f"[train] selective scan under grad raised, {ss_ops.launches - n}"
-              f" launches: {str(e)[:110]}...", flush=True)
-    else:
-        raise SystemExit("the selective scan ran under grad without a "
-                         "backward")
-    if ss_ops.launches != n:
-        raise SystemExit("the selective scan launched under grad")
+
+
+# 24 (e), (f): train.py at the smoke configs of an MoE arch and of the
+# mamba1 arch, as a user runs them (`--smoke`, one round).
+SMOKE_TRAIN_ARGV = ["--smoke", "--rounds", "1", "--clients", "2", "--batch",
+                    "2", "--seq", "32", "--V", "2", "--defl"]
+# 24 (f): the scan's gradients through the kernel against the plain path,
+# of each leaf's largest |gradient| (tests/test_torch_train_cuda.py).
+SCAN_GRAD_TOL = 1e-5
+
+
+def _train_smoke(counters, arch, dev, **kw):
+    """train.py --arch `arch` SMOKE_TRAIN_ARGV on `dev`; returns (result,
+    config, args, V, the kernels' launches counted from 0)."""
+    from repro_torch.launch import train
+    argv = ["--arch", arch] + SMOKE_TRAIN_ARGV + ["--device", str(dev)]
+    args = train.build_parser().parse_args(argv)
+    for c in counters.values():
+        c.launches = 0
+    trainer = train.Trainer(args, **kw)
+    for _ in range(args.rounds):
+        trainer.run_round()
+    launches = {name: c.launches for name, c in counters.items()}
+    return trainer.result, trainer.cfg, args, trainer.V, launches
+
+
+def phase_train_moe(counters, dev):
+    """24 (e): train.py --arch qwen3-moe-30b-a3b --smoke on the card (its
+    bf16 config): the plan line equal to its host recomputation, finite
+    losses, one flash launch a layer and local step; the loss at the
+    trained params carries the router's aux loss (loss = ce + aux, aux >
+    0). Then the float32 config card vs CPU from equal weights: losses
+    and params within 1e-5. Returns the launches of the bf16 round."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as tfm
+    from repro_torch.utils.tree import tree_map
+    arch = "qwen3-moe-30b-a3b"
+    res, cfg, args, V, launches = _train_smoke(counters, arch, dev)
+    _, want_line = train.plan_fed(args, cfg.param_count()[0] * 32)
+    per_round = cfg.n_layers * V * args.clients
+    batch = torch.randint(0, cfg.vocab_size, (2, args.seq + 1), device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(9))
+    with torch.no_grad():
+        loss, m = tfm.loss_fn(cfg, res.params, {"tokens": batch}, "kernel")
+    loss, ce, aux = (float(t) for t in (loss, m["ce_loss"], m["aux_loss"]))
+    print(f"[train] {arch} smoke ({cfg.dtype}, {cfg.moe.n_experts} experts, "
+          f"top {cfg.moe.top_k}) train.py on the card: {args.clients} "
+          f"clients x V={V}, losses {[r.tolist() for r in res.losses]}, "
+          f"launches {launches}; plan line {res.plan_line!r}, host "
+          f"recomputation {want_line!r}; loss_fn at the trained params "
+          f"{loss:.6f} = ce {ce:.6f} + aux {aux:.6f}", flush=True)
+    if res.plan_line != want_line:
+        raise SystemExit(f"{arch}: the plan line differs from its host "
+                         f"recomputation")
+    if not all(np.isfinite(r).all() for r in res.losses):
+        raise SystemExit(f"{arch}: non-finite training losses")
+    if launches["flash_attention"] != per_round * args.rounds or             launches["selective_scan"] or launches["quantize"]:
+        raise SystemExit(f"{arch}: expected {per_round * args.rounds} flash "
+                         f"launches and no scan or quantize, got {launches}")
+    if not (aux > 0 and abs(loss - (ce + aux)) <= 1e-6 * abs(loss)):
+        raise SystemExit(f"{arch}: the loss does not carry the aux loss")
+
+    cfg32 = get_config(arch, smoke=True).replace(dtype="float32")
+    cpu = tfm.init_params(cfg32, torch.Generator().manual_seed(10),
+                          device="cpu")
+    argv = ["--arch", arch] + SMOKE_TRAIN_ARGV
+    got = train.run(argv + ["--device", str(dev)],
+                    params=tree_map(lambda t: t.to(dev), cpu), cfg=cfg32)
+    want = train.run(argv + ["--device", "cpu"], params=cpu, cfg=cfg32)
+    loss_gap = float(np.max(np.abs(np.stack(got.losses)
+                                   - np.stack(want.losses))
+                            / np.abs(np.stack(want.losses))))
+    param_gap = _leaf_gap(got.params, want.params)
+    print(f"[train] {arch} smoke float32 card vs CPU, 1 round x 2 clients x "
+          f"V=2: losses {loss_gap:.3g} relative, params {param_gap:.3g} of "
+          f"scale (tol {TRAIN_REF_TOL['float32']})", flush=True)
+    if not (loss_gap <= TRAIN_REF_TOL["float32"][0]
+            and param_gap <= TRAIN_REF_TOL["float32"][1]):
+        raise SystemExit(f"{arch} smoke training: card and CPU disagree")
+    return launches
+
+
+def phase_train_scan(counters, dev):
+    """24 (f): falcon-mamba-7b's smoke config in float32 on the card: the
+    loss and every gradient leaf through the scan kernel (one launch a
+    layer; its backward is the plain version's VJP) against the plain path
+    (impl="plain"), within 1e-5 of each leaf's largest |gradient|, and
+    every mixer leaf's gradient nonzero. Then train.py --arch
+    falcon-mamba-7b --smoke (bf16) takes a round on the card: finite
+    losses, one scan launch a layer and local step. Returns the scan's
+    launches in that round."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as tfm
+    from repro_torch.utils.tree import leaves, tree_map
+    arch = "falcon-mamba-7b"
+    scan = counters["selective_scan"]
+    cfg = get_config(arch, smoke=True).replace(dtype="float32")
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(11),
+                             device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 2, 65), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(
+                               12))
+    one = tree_map(lambda t: t[None], params)
+    scan.launches = 0
+    g_k, l_k = train.value_and_grad_fn(cfg, "kernel")(one, {"tokens": tokens})
+    n = scan.launches
+    g_p, l_p = train.value_and_grad_fn(cfg, "plain")(one, {"tokens": tokens})
+    loss_gap = abs(float(l_k) - float(l_p)) / abs(float(l_p))
+    gaps = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            for a, b in zip(leaves(g_k), leaves(g_p))]
+    sizes = {k: float(t.abs().max())
+             for k, t in g_k["layers"]["mamba"].items()}
+    print(f"[train] {arch} smoke float32 (d_inner "
+          f"{cfg.ssm.expand * cfg.d_model}, d_state {cfg.ssm.d_state}) on the "
+          f"card: loss {float(l_k):.6f}, {loss_gap:.3g} relative to the plain "
+          f"path; gradients through the scan kernel ({n} launches) vs the "
+          f"plain path: largest gap {max(gaps):.3g} of a leaf's max |g| over "
+          f"{len(gaps)} leaves (tol {SCAN_GRAD_TOL:g}); mixer leaves' max "
+          f"|g| {sizes}", flush=True)
+    if n != cfg.n_layers or scan.launches != n:
+        raise SystemExit(f"the scan launched {n} times in the kernel's loss "
+                         f"and {scan.launches - n} in the plain one; expected "
+                         f"{cfg.n_layers} and 0")
+    if not (loss_gap <= SCAN_GRAD_TOL and max(gaps) <= SCAN_GRAD_TOL
+            and all(sizes.values())):
+        raise SystemExit("gradients through the scan kernel disagree with "
+                         "the plain path or are zero")
+    res, cfg, args, V, launches = _train_smoke(counters, arch, dev)
+    want = cfg.n_layers * V * args.clients * args.rounds
+    print(f"[train] {arch} smoke ({cfg.dtype}) train.py on the card: "
+          f"{args.clients} clients x V={V}, losses "
+          f"{[r.tolist() for r in res.losses]}, launches {launches}",
+          flush=True)
+    if not all(np.isfinite(r).all() for r in res.losses):
+        raise SystemExit(f"{arch}: non-finite training losses")
+    if launches["selective_scan"] != want or launches["flash_attention"]:
+        raise SystemExit(f"{arch}: expected {want} scan launches and no "
+                         f"flash, got {launches}")
+    return launches
 
 
 def phase_train_checkpoint(trainer):
@@ -3879,13 +4139,32 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_train_reference(counters, dev)
+    attn_launches.append(phase_train_moe(counters, dev))
+    scan_launches = [falcon_launches, phase_train_scan(counters, dev)]
     print(f"[train] phase 24 took {time.perf_counter() - t24:.1f} s",
           flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 25, 26. qwen3-moe-30b-a3b serving (16 of 48 layers); the five
+    # archs of the MoE family at smoke size, card vs CPU -----------------------
+    t25 = time.perf_counter()
+    attn_launches.append(phase_serve(counters, "qwen3-moe-30b-a3b"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[serve] phase 25 took {time.perf_counter() - t25:.1f} s",
+          flush=True)
+    t26 = time.perf_counter()
+    n26 = sum(phase_serve_reference(arch) for arch in MOE_FAMILY)
+    attn_launches.append({"flash_attention": n26})
+    print(f"[reference] phase 26 took {time.perf_counter() - t26:.1f} s, "
+          f"{n26} flash launches on the card", flush=True)
 
     records["quantize"]["launches"] = sum(n["quantize"] for n in fl_launches)
     records["flash_attention"]["launches"] = sum(
         n["flash_attention"] for n in attn_launches)
-    records["selective_scan"]["launches"] = falcon_launches["selective_scan"]
+    records["selective_scan"]["launches"] = sum(
+        n["selective_scan"] for n in scan_launches)
     records["fold_matmul"]["launches"] = sum(
         n["fold_matmul"] for n in fl_launches) + train_fold
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

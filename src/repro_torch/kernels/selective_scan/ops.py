@@ -12,11 +12,12 @@ nothing is padded and a nonzero `h0` goes to the kernel itself (the
 reference sends it to its oracle). B and C may be views with strided rows
 (the split of the x projection); only their last dim must be contiguous.
 
-The kernel has no backward, in either package (the reference's Pallas
-scan has no VJP): on the card, with grad mode on and an input that
-requires grad, `selective_scan` raises RuntimeError rather than return an
-output cut from the graph. On CPU tensors the plain version is
-differentiable.
+On the card the kernel runs under autograd (`_SelectiveScan`): its
+forward is one launch, and its backward is the VJP of the plain version
+recomputed from the saved inputs (h0 included), as the flash wrapper's.
+Neither package has a backward kernel (the reference's Pallas scan has no
+VJP; its training runs the plain scan). On CPU tensors the plain version
+is differentiable.
 """
 from __future__ import annotations
 
@@ -104,21 +105,14 @@ def selective_scan(
     h0: Optional[torch.Tensor] = None,  # (B, D, N) fp32
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Same contract as ref.selective_scan_ref: (y (B, S, D) in x's dtype,
-    h_final (B, D, N) float32). `chunk` orders the plain version's sums; the
-    kernel takes it and ignores it."""
-    global launches
+    h_final (B, D, N) float32), differentiable on both devices. `chunk`
+    orders the plain version's sums (on the card, those of the backward);
+    the kernel takes it and ignores it."""
     _check(x, dt, A, B, C, D, h0)
     if x.device.type == "cpu":
         return selective_scan_ref(x, dt, A, B, C, D, chunk=chunk, h0=h0)
     if x.device.type != "cuda":
         raise ValueError(f"selective_scan runs on cuda or cpu, not {x.device}")
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (x, dt, A, B, C, D, h0)):
-        raise RuntimeError(
-            "the CUDA selective-scan kernel has no backward (nor has the "
-            "reference's Pallas scan): it cannot run on inputs that require "
-            "grad; run it under torch.no_grad() or train on the CPU "
-            "(ROADMAP.md queue 1 item 15.7: the scan's backward)")
     Bsz, S, Dm = x.shape
     N = A.shape[1]
     if N not in STATE_SIZES:
@@ -136,6 +130,40 @@ def selective_scan(
     if B.stride(2) != 1 or C.stride(2) != 1:
         raise ValueError("the CUDA scan kernel needs B and C contiguous in "
                          "their last dim")
+    return _SelectiveScan.apply(x, dt, A, B, C, D, h0, chunk)
+
+
+class _SelectiveScan(torch.autograd.Function):
+    """The kernel's forward with the plain version's VJP as its backward."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, D, h0, chunk):
+        ctx.save_for_backward(x, dt, A, B, C, D, h0)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return _launch(x, dt, A, B, C, D, h0)
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[:7]
+        inputs = [t.detach().requires_grad_(n) if t is not None else None
+                  for t, n in zip(saved, need)]
+        with torch.enable_grad():
+            outs = selective_scan_ref(*inputs[:6], chunk=ctx.chunk,
+                                      h0=inputs[6])
+        pairs = [(o, g) for o, g in zip(outs, (gy, gh)) if g is not None]
+        grads = iter(torch.autograd.grad(
+            [o for o, _ in pairs], [t for t, n in zip(inputs, need) if n],
+            [g for _, g in pairs], allow_unused=True))
+        return (*(next(grads) if n else None for n in need), None)
+
+
+def _launch(x, dt, A, B, C, D, h0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the kernel on checked CUDA tensors."""
+    global launches
+    Bsz, S, Dm = x.shape
+    N = A.shape[1]
     launch, _ = load_kernel()
     y = torch.empty_like(x)
     h = torch.empty((Bsz, Dm, N), dtype=torch.float32, device=x.device)

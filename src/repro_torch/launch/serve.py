@@ -1,8 +1,11 @@
 """Batched serving driver: prefill a batch of prompts, then decode tokens
 greedily step by step against the layers' caches. Port of
-repro/launch/serve.py for every arch the port serves
-(configs/registry.py): qwen2-0.5b, falcon-mamba-7b, gemma-7b, zamba2-2.7b
-and musicgen-large.
+repro/launch/serve.py for every arch of the reference
+(configs/registry.py): qwen2-0.5b, falcon-mamba-7b, gemma-7b, zamba2-2.7b,
+musicgen-large, qwen3-moe-30b-a3b, moonshot-v1-16b-a3b,
+llama4-scout-17b-a16e, qwen3-32b and llava-next-34b (the last five do not
+fit one 80 GB card at full depth in float32: run them with --smoke, or
+cut their depth with ModelConfig.replace(n_layers=) in a script).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
       --batch 4 --prompt-len 2048 --gen 32
@@ -13,10 +16,11 @@ Runs on the CUDA card unless `--device cpu` is given. The prefill goes
 through the hand-written kernels (impl="kernel"): flash attention for the
 attention archs and zamba2-2.7b's shared block, the selective scan for
 falcon-mamba-7b; on CPU tensors their wrappers run the plain versions.
-Decode is plain torch. An audio model (musicgen-large) takes prompts of
-(B, S, K) codebook tokens and generates (B, gen, K); as in the
-reference's `main`, no conditioning prefix is passed (`generate` takes
-one). The weights are random, drawn on the CPU from `--seed` one layer at
+Decode is plain torch, and so is the MoE channel mixer everywhere (its
+experts are batched GEMMs, as the reference's einsums). An audio model
+(musicgen-large) takes prompts of (B, S, K) codebook tokens and generates
+(B, gen, K); as in the reference's `main`, no modality prefix is passed
+(`generate` takes one). The weights are random, drawn on the CPU from `--seed` one layer at
 a time, so every device serves the same model (falcon-mamba-7b's 7.0e9
 float32 parameters take 28 GB on the card; in scripts draw them from a
 CUDA generator).

@@ -15,13 +15,14 @@ real training. With `--defl` the batch size and V come from the DEFL plan
 
 Runs on the CUDA card unless `--device cpu` is given. The loss runs with
 impl="kernel": on the card every attention layer's forward is the flash
-kernel, and its backward the plain version's VJP (kernels/flash_attention
-ops.py); on CPU tensors the plain version runs both ways. The selective
-scan has no backward, so falcon-mamba-7b trains on the CPU only (on the
-card its wrapper raises). The windows are single-codebook text, as in the
-reference, so an audio model (musicgen-large) raises here; `value_and_grad_fn`
-and `client.make_local_update` train it on (B, S, K) batches. The weights
-are random, drawn on the CPU from `--seed`, unless `run` is given params.
+kernel and every mamba1 layer's scan the selective-scan kernel, each with
+its plain version's VJP as its backward (kernels/*/ops.py); on CPU
+tensors the plain versions run both ways. An MoE model's loss carries the
+router's aux loss (transformer.loss_fn). The windows are single-codebook
+text with no prefix, as in the reference, so a modality model
+(musicgen-large, llava-next-34b) raises here; `value_and_grad_fn` and
+`client.make_local_update` train one on its own batches. The weights are
+random, drawn on the CPU from `--seed`, unless `run` is given params.
 """
 from __future__ import annotations
 

@@ -1,8 +1,9 @@
 """The decoder stack of the LLM zoo: the attention, mamba1 and mamba2
-mixers with a dense channel mixer or none, zamba2's tied shared attention
-block, the modality prefix (precomputed frame or patch embeddings through
-a linear projector) and musicgen's K summed codebook embeddings with K
-untied LM heads. Port of repro/models/transformer.py.
+mixers with a dense or mixture-of-experts channel mixer or none, zamba2's
+tied shared attention block, the modality prefix (precomputed frame or
+patch embeddings through a linear projector) and musicgen's K summed
+codebook embeddings with K untied LM heads. Port of
+repro/models/transformer.py.
 
 Layer parameters are stacked (n_groups, scan_group, ...) as in the
 reference, so its parameters carry over as a plain copy (convert.py). A
@@ -12,10 +13,9 @@ autograd). With `shared_attn_every` set, one shared block (attention +
 MLP, parameters `params["shared"]`) runs after each scan group, as in the
 reference, with a KV cache of its own for each group (`cache["shared"]`).
 `loss_fn` is the reference's next-token cross-entropy on the text (or
-codebook) positions.
-
-The reference's MoE channel mixer is not ported yet and raises
-NotImplementedError naming the ROADMAP item that ports it.
+codebook) positions plus the MoE router's aux loss summed over the layers.
+Prefill and decode run the MoE at the config's capacity factor and drop
+its metrics, as the reference does.
 """
 from __future__ import annotations
 
@@ -29,6 +29,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba as m1
 from repro_torch.models import mamba2 as m2
 from repro_torch.models.mlp import init_mlp, mlp_forward
+from repro_torch.models.moe import init_moe, moe_forward
 from repro_torch.models.norms import init_rms_norm, rms_norm
 from repro_torch.utils.tree import tree_map
 
@@ -41,9 +42,8 @@ def check_supported(cfg: ModelConfig) -> None:
     todo = []
     if cfg.mixer not in ("attention", "mamba1", "mamba2"):
         todo.append(f"the {cfg.mixer!r} mixer")
-    if cfg.mlp not in ("dense", "none"):
-        todo.append(f"the {cfg.mlp!r} channel mixer (ROADMAP.md queue 1 item "
-                    "15.4: models/moe.py)")
+    if cfg.mlp not in ("dense", "moe", "none"):
+        todo.append(f"the {cfg.mlp!r} channel mixer")
     if cfg.dtype not in _DTYPES:
         todo.append(f"dtype {cfg.dtype!r}")
     if todo:
@@ -76,6 +76,9 @@ def _init_layer(cfg: ModelConfig, gen: torch.Generator) -> Dict:
     if cfg.mlp == "dense":
         p["ln2"] = init_rms_norm(cfg.d_model, device=gen.device)
         p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff)
+    elif cfg.mlp == "moe":
+        p["ln2"] = init_rms_norm(cfg.d_model, device=gen.device)
+        p["moe"] = init_moe(gen, cfg.d_model, cfg.moe)
     return p
 
 
@@ -151,7 +154,8 @@ def _layer(params: Dict, cfg: ModelConfig, idx: int) -> Dict:
 
 
 def _layer_forward(cfg: ModelConfig, p: Dict, x, positions, impl: str):
-    """One block: pre-norm mixer + pre-norm channel-mixer, residuals."""
+    """One block: pre-norm mixer + pre-norm channel-mixer, residuals.
+    Returns (x, the MoE's aux loss or None)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if cfg.mixer == "attention":
         h = attn.attention_forward(p["attn"], h, cfg.attention, positions,
@@ -185,11 +189,16 @@ def _group_end(cfg: ModelConfig, idx: int) -> Optional[int]:
 
 
 def _channel_mix(cfg: ModelConfig, p: Dict, x):
-    """The pre-norm dense MLP with its residual, or nothing (mlp="none")."""
+    """The pre-norm dense MLP or MoE with its residual, or nothing
+    (mlp="none"). Returns (x, the MoE's aux loss, or None)."""
     if cfg.mlp == "dense":
         x = x + mlp_forward(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps),
                             cfg.act)
-    return x
+    elif cfg.mlp == "moe":
+        h, metrics = moe_forward(p["moe"], rms_norm(x, p["ln2"], cfg.norm_eps),
+                                 cfg.moe, cfg.act)
+        return x + h, metrics["aux_loss"]
+    return x, None
 
 
 def embed_inputs(cfg: ModelConfig, params: Dict, tokens, prefix_embeds=None):
@@ -236,23 +245,26 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
 def forward(cfg: ModelConfig, params: Dict, tokens, impl: str = "plain", *,
             prefix_embeds=None) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """Full-sequence forward over the prefix and the tokens. Returns
-    (logits, aux_loss, prefix_len); the aux loss (the MoE router's in the
-    reference) is 0 for a dense model."""
+    (logits, aux_loss, prefix_len): the aux loss is the MoE router's
+    summed over the layers in order (float32), 0 for a model without
+    one."""
     check_supported(cfg)
     x, prefix_len = embed_inputs(cfg, params, tokens, prefix_embeds)
     positions = _positions(x.shape[0], x.shape[1], x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for idx in range(cfg.n_layers):
-        x = _layer_forward(cfg, _layer(params["layers"], cfg, idx), x,
-                           positions, impl)
+        x, a = _layer_forward(cfg, _layer(params["layers"], cfg, idx), x,
+                              positions, impl)
+        if a is not None:
+            aux = aux + a
         if _group_end(cfg, idx) is not None:
             x = _shared_block(cfg, params["shared"], x, positions, impl)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return compute_logits(cfg, params, x), aux, prefix_len
 
 
 def loss_fn(cfg: ModelConfig, params: Dict, batch: Dict, impl: str = "plain",
             ) -> Tuple[torch.Tensor, Dict]:
-    """Next-token cross-entropy (+ the MoE aux loss, 0 here). batch:
+    """Next-token cross-entropy plus the MoE aux loss. batch:
     {"tokens": (B, S) or (B, S, K), optionally "prefix_embeds"}. Position
     P + t predicts token t + 1 (the prefix's positions predict nothing):
     the mean over (B, S - 1), or (B, S - 1, K) for audio, of -log p in
@@ -316,7 +328,8 @@ def _layer_decode(cfg: ModelConfig, p: Dict, x, pos: int, layer_cache):
     else:
         h, layer_cache = m2.mamba2_decode_step(p["mamba"], h, cfg.ssm,
                                                layer_cache)
-    return _channel_mix(cfg, p, x + h), layer_cache
+    x, _ = _channel_mix(cfg, p, x + h)
+    return x, layer_cache
 
 
 def decode_step(cfg: ModelConfig, params: Dict, cache: Dict, tokens,
@@ -378,7 +391,7 @@ def prefill(cfg: ModelConfig, params: Dict, tokens,
                     p["mamba"], h, cfg.ssm, return_state=True)
             c["conv"].copy_(conv_tail)
             c["h"].copy_(hst)
-        x = _channel_mix(cfg, p, x + h)
+        x, _ = _channel_mix(cfg, p, x + h)
         g = _group_end(cfg, idx)
         if g is not None:
             p_s = params["shared"]

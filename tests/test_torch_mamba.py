@@ -153,10 +153,19 @@ def test_init_params_draws_the_list_then_stack_values(arch):
 def test_check_supported_still_refuses_unported_parts():
     cfg = registry.get_config(ARCH, smoke=True)
     modality = j_registry.get_config("llava-next-34b", smoke=True).modality
-    with pytest.raises(NotImplementedError,
-                       match="'moe' channel mixer.*ROADMAP"):
-        tfm.init_params(cfg.replace(mlp="moe"), torch.Generator(),
+    # What no reference config has is refused: another mixer, channel
+    # mixer or dtype.
+    for bad in ({"mixer": "rwkv"}, {"mlp": "kan"}, {"dtype": "float16"}):
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            tfm.init_params(cfg.replace(**bad), torch.Generator(),
+                            device="cpu")
+    # The MoE channel mixer is ported (qwen3-moe-30b-a3b) and no longer
+    # refused.
+    moe = j_registry.get_config("qwen3-moe-30b-a3b", smoke=True).moe
+    p = tfm.init_params(cfg.replace(mlp="moe", moe=moe), torch.Generator(),
                         device="cpu")
+    assert p["layers"]["moe"]["wg"].shape[2:] == (
+        moe.n_experts, cfg.d_model, moe.d_ff_expert)
     # The modality prefix and the untied LM head are ported (musicgen-large)
     # and no longer refused.
     p = tfm.init_params(cfg.replace(modality=modality), torch.Generator(),
