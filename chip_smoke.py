@@ -275,11 +275,26 @@ Phases (each prints its own lines; any failure exits non-zero):
      qwen3-moe-30b-a3b, moonshot-v1-16b-a3b, llama4-scout-17b-a16e,
      qwen3-32b and llava-next-34b (also with a vision prefix); an MoE
      config prints its router's smallest top-k margin and its dropped
-     shares, and in bf16 may flip a greedy token only at a near-tie.
+     shares, and in bf16 may flip a greedy token only at a near-tie;
+ 27. dry run (no kernel): (a) `python -m repro_torch.launch.dryrun --arch
+     all --shape all --mesh single` in this process (its 40 pairs in
+     spawned workers, on fake tensors): every pair ok, no worker
+     initialised CUDA, this process's CUDA allocation unchanged; the wall
+     time, and past 120 s the costliest pairs; each pair's per-device
+     argument bytes and counted FLOPs over the analytic model's; then the
+     multipod demo twin (gemma-7b train_4k on the 2x16x16 mesh); (b)
+     qwen2-0.5b decode_32k on a (1, 1) mesh: the dry run's argument bytes
+     within 1% of the card's allocation for the same params, cache and
+     tokens, and three decode steps (CUDA events) against max(counted
+     FLOPs / PEAK_FLOPS, argument bytes / HBM_BW), the share of that bound
+     at most 1.05; (c) each served arch's prefill time of phases 6, 8, 13,
+     15, 22 and 25 (not run again) beside its model, counted and analytic
+     FLOPs at that shape, model FLOPs / (prefill s x PEAK_FLOPS) at most
+     1.05.
 
 Phases 10, 11, 12, 18, 19, 20, 21 and 17 run right after phase 5, in that
-order, phases 13-16 after phase 9, then 22, 23, 24, 25 and 26; quantize's
-`launches` in the JSON line are those of phases 4, 10, 11, 12 (a, b, c's
+order, phases 13-16 after phase 9, then 22, 23, 24, 25, 26 and 27;
+quantize's `launches` in the JSON line are those of phases 4, 10, 11, 12 (a, b, c's
 guarded run and d), 17 (b), 18, 19, 20 and 21, the fold matmul's those of
 the same FL paths, of the quickstart twin, 17 (a, c) and 24 (a)'s FedAvg,
 flash attention's those of phases 6, 13, 15, 22, 24 (a, e), 25 and 26's
@@ -3231,9 +3246,11 @@ SERVE_LOGIT_TOL = 0.05
 SERVE_F32_PROMPT, SERVE_F32_LOGIT_TOL = 256, 1e-4
 
 
-def phase_serve(counters, arch):
+def phase_serve(counters, arch, prefill_times):
     """`arch` at full width and depth through serve.generate; returns the
-    launches of every kernel in that generate."""
+    launches of every kernel in that generate, and puts (the config
+    served, its prompts' shape, the prefill's seconds) in
+    `prefill_times[arch]` (phase 27 (c))."""
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.launch import serve
@@ -3279,6 +3296,7 @@ def phase_serve(counters, arch):
           f"{res.decode_s / steps * 1e3:.2f} ms a step), launches {launches}"
           f", peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    prefill_times[arch] = (cfg, B, S, res.prefill_s)
     if tuple(res.tokens.shape) != (B, SERVE_GEN, *prompts.shape[2:]):
         raise SystemExit(f"generated {tuple(res.tokens.shape)} tokens")
     print(f"[serve] {arch} tokens {tuple(res.tokens.shape)}, prefill logits "
@@ -3980,6 +3998,165 @@ def phase_train_checkpoint(trainer):
         raise SystemExit("the checkpoint did not load back bit for bit")
 
 
+# -- the dry run and its accounting on the card (phase 27) ---------------------
+
+# A dry-run sweep past this many seconds names the pairs that cost it.
+SWEEP_BUDGET_S = 120
+# (b): the pair whose accounting the card checks, on a (1, 1) mesh: the
+# whole pair on one device (1.98 GB of float32 params, a 51.5 GB bf16 KV
+# cache, 128 int32 tokens).
+ACCOUNT_ARCH, ACCOUNT_SHAPE, ACCOUNT_STEPS = "qwen2-0.5b", "decode_32k", 3
+ACCOUNT_BYTES_RTOL = 0.01
+# A time below its bound by more than this (share of the bound above it)
+# means a count or a constant is wrong.
+SHARE_LIMIT = 1.05
+
+
+def phase_dryrun_sweep():
+    """27 (a): `python -m repro_torch.launch.dryrun --arch all --shape all
+    --mesh single`, in this process (its pairs in spawned workers), then
+    the multipod demo twin's one pair on the 512-device mesh: every pair
+    ok (each prints its argument bytes a device and its counted FLOPs over
+    analytic_costs' and over the model of the step run), no worker initialised CUDA and this process's
+    allocation is unchanged."""
+    import runpy
+    import tempfile
+    import torch
+    from repro_torch.launch import dryrun
+    before = torch.cuda.memory_allocated()
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        rc = dryrun.main(["--arch", "all", "--shape", "all", "--mesh",
+                          "single", "--out", out])
+        wall = time.perf_counter() - t0
+        recs = [json.loads(p.read_text())
+                for p in sorted(Path(out).glob("*.json"))]
+    after = torch.cuda.memory_allocated()
+    bad = [f"{r['arch']} {r['shape']}" for r in recs
+           if not r["ok"] or r["cuda_initialized"]]
+    print(f"[dryrun] sweep of {len(recs)} pairs on the single mesh: rc {rc},"
+          f" {wall:.1f} s wall, {sum(r['total_seconds'] for r in recs):.1f}"
+          f" s in its workers; CUDA memory allocated {before} -> {after} B",
+          flush=True)
+    if wall > SWEEP_BUDGET_S:
+        top = sorted(recs, key=lambda r: -r["total_seconds"])[:8]
+        print("[dryrun]   the costliest pairs: " + ", ".join(
+            f"{r['arch']} {r['shape']} {r['total_seconds']:.1f} s"
+            for r in top), flush=True)
+    if rc or bad or len(recs) != 40 or after != before:
+        raise SystemExit(f"the dry-run sweep failed: rc {rc}, pairs not ok "
+                         f"or with CUDA initialised: {bad}")
+    demo = runpy.run_path(str(Path(__file__).resolve().parent / "examples"
+                              / "multipod_dryrun_demo_torch.py"),
+                          run_name="multipod_demo")
+    t0 = time.perf_counter()
+    rc = demo["main"]([])
+    print(f"[dryrun] multipod demo twin (gemma-7b train_4k, 2x16x16): rc "
+          f"{rc}, {time.perf_counter() - t0:.1f} s; CUDA memory allocated "
+          f"{torch.cuda.memory_allocated()} B", flush=True)
+    if rc or torch.cuda.memory_allocated() != before:
+        raise SystemExit("the multipod demo twin failed")
+
+
+def phase_dryrun_accounting(card):
+    """27 (b): the dry run's per-device argument bytes for qwen2-0.5b
+    decode_32k on a (1, 1) mesh against the card's allocation for the
+    same params, cache and tokens; three decode steps, CUDA events, against
+    max(counted FLOPs / PEAK_FLOPS, argument bytes / HBM_BW)."""
+    import torch
+    from repro_torch.configs.base import INPUT_SHAPES
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.utils import flops as fl
+    rec = dryrun.run_pair(ACCOUNT_ARCH, ACCOUNT_SHAPE, "single", "",
+                          mesh=make_test_mesh((1, 1)))
+    if not rec["ok"]:
+        raise SystemExit(f"dry run of {ACCOUNT_ARCH} failed: {rec['error']}")
+    arg, flops = rec["memory"]["argument_bytes"], rec["flops_global"]
+    cfg, shape = get_config(ACCOUNT_ARCH), INPUT_SHAPES[ACCOUNT_SHAPE]
+    B = shape.global_batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    params = tfm.init_params(cfg, torch.Generator(device="cuda"
+                                                  ).manual_seed(0))
+    cache = tfm.init_cache(cfg, B, shape.seq_len)
+    tok = torch.zeros((B, 1), dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - base
+    gap = abs(grown - arg) / arg
+    print(f"[account] {ACCOUNT_ARCH} {ACCOUNT_SHAPE} on a (1, 1) mesh: dry "
+          f"run argument bytes {arg:,}, the card's allocation grew "
+          f"{grown:,} B ({gap:.3%} apart; tol {ACCOUNT_BYTES_RTOL:.0%})",
+          flush=True)
+    if not gap <= ACCOUNT_BYTES_RTOL:
+        raise SystemExit("the dry run's argument bytes disagree with the "
+                         "card's allocation")
+    torch.cuda.reset_peak_memory_stats()
+    tfm.decode_step(cfg, params, cache, tok)  # warm-up: cuBLAS, allocator
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(ACCOUNT_STEPS):
+        tfm.decode_step(cfg, params, cache, tok)
+    end.record()
+    end.synchronize()
+    step_s = start.elapsed_time(end) / ACCOUNT_STEPS / 1e3
+    t_ops, t_bytes = flops / fl.PEAK_FLOPS, arg / fl.HBM_BW
+    bound = max(t_ops, t_bytes)
+    share = bound / step_s
+    print(f"[account] decode step {step_s * 1e3:.3f} ms (CUDA events, "
+          f"{ACCOUNT_STEPS} steps, B={B} against a {shape.seq_len}-slot "
+          f"cache); bound {bound * 1e3:.3f} ms (counted {flops:.4g} FLOPs "
+          f"at {fl.PEAK_FLOPS:.4g}/s: {t_ops * 1e3:.4f} ms; {arg:,} B at "
+          f"{fl.HBM_BW:.4g} B/s: {t_bytes * 1e3:.3f} ms), share of bound "
+          f"{share:.4f} (limit {SHARE_LIMIT}); peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}",
+          flush=True)
+    traffic = rec["bytes_per_device"]
+    print(f"[account] the dry run's counted (eager, unfused) traffic "
+          f"{traffic:.4g} B takes {traffic / fl.HBM_BW * 1e3:.3f} ms at "
+          f"HBM_BW: {traffic / fl.HBM_BW / step_s:.4f} of the step",
+          flush=True)
+    if not share <= SHARE_LIMIT:
+        raise SystemExit("a decode step beat its bound: a count or a "
+                         "constant is wrong")
+    del params, cache
+
+
+def phase_dryrun_peak_share(prefill_times, card):
+    """27 (c): each served arch's prefill (phases 6, 8, 13, 15, 22, 25;
+    B = 4, S = 2048, not run again): model FLOPs, counted and analytic
+    FLOPs at that shape, and model FLOPs / (prefill s x PEAK_FLOPS)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.configs.base import InputShape, MeshConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.utils import flops as fl
+    from repro_torch.utils.analytic import (analytic_costs,
+                                            analytic_flops_as_run)
+    mc, one = MeshConfig(), make_test_mesh((1, 1))
+    for arch, (cfg, B, S, prefill_s) in prefill_times.items():
+        shape = InputShape("serve", S, B, "prefill")
+        with FakeTensorMode():
+            counted = dryrun.lower_prefill(cfg, shape, one, mc).flops_global
+        model = fl.model_flops(cfg, shape)
+        ana = analytic_costs(cfg, shape, mc)["flops_global"]
+        as_run = analytic_flops_as_run(cfg, shape, mc)
+        peak = prefill_s * fl.PEAK_FLOPS
+        share = model / peak
+        print(f"[peak] {arch} ({cfg.n_layers} layers) prefill {B}x{S}: "
+              f"{prefill_s:.4f} s; model FLOPs {model:.4g}, counted "
+              f"{counted:.4g} (as-run analytic {as_run:.4g}, ratio "
+              f"{counted / as_run:.4f}), analytic_costs {ana:.4g}; share of "
+              f"peak {share:.4f} (model), {counted / peak:.4f} (counted); "
+              f"{card}", flush=True)
+        if not share <= SHARE_LIMIT:
+            raise SystemExit(f"{arch}'s prefill beat the card's peak: a "
+                             f"count or a constant is wrong")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4100,14 +4277,16 @@ def main() -> int:
                              f"the fold matmul: {launches}")
 
     # -- 6, 7. qwen2-0.5b serving and its reference --------------------------
-    qwen2_launches = phase_serve(counters, "qwen2-0.5b")
+    prefill_times = {}
+    qwen2_launches = phase_serve(counters, "qwen2-0.5b", prefill_times)
     phase_serve_reference("qwen2-0.5b")
     # Free qwen2's weights and caches before the 28 GB of falcon-mamba-7b.
     gc.collect()
     torch.cuda.empty_cache()
 
     # -- 8, 9. falcon-mamba-7b serving and its reference ---------------------
-    falcon_launches = phase_serve(counters, "falcon-mamba-7b")
+    falcon_launches = phase_serve(counters, "falcon-mamba-7b",
+                                  prefill_times)
     gc.collect()
     torch.cuda.empty_cache()
     phase_serve_reference("falcon-mamba-7b")
@@ -4116,13 +4295,14 @@ def main() -> int:
     # Each serve phase's weights and caches are freed before the next.
     attn_launches = [qwen2_launches]
     for arch in ("gemma-7b", "zamba2-2.7b"):
-        attn_launches.append(phase_serve(counters, arch))
+        attn_launches.append(phase_serve(counters, arch, prefill_times))
         gc.collect()
         torch.cuda.empty_cache()
         phase_serve_reference(arch)
 
     # -- 22, 23. musicgen-large serving and its reference ---------------------
-    attn_launches.append(phase_serve(counters, "musicgen-large"))
+    attn_launches.append(phase_serve(counters, "musicgen-large",
+                                     prefill_times))
     gc.collect()
     torch.cuda.empty_cache()
     phase_serve_reference("musicgen-large")
@@ -4149,7 +4329,8 @@ def main() -> int:
     # -- 25, 26. qwen3-moe-30b-a3b serving (16 of 48 layers); the five
     # archs of the MoE family at smoke size, card vs CPU -----------------------
     t25 = time.perf_counter()
-    attn_launches.append(phase_serve(counters, "qwen3-moe-30b-a3b"))
+    attn_launches.append(phase_serve(counters, "qwen3-moe-30b-a3b",
+                                     prefill_times))
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[serve] phase 25 took {time.perf_counter() - t25:.1f} s",
@@ -4159,6 +4340,19 @@ def main() -> int:
     attn_launches.append({"flash_attention": n26})
     print(f"[reference] phase 26 took {time.perf_counter() - t26:.1f} s, "
           f"{n26} flash launches on the card", flush=True)
+
+    # -- 27. the dry run: the sweep, its accounting against the card, the
+    # served archs' share of peak --------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t27 = time.perf_counter()
+    phase_dryrun_sweep()
+    phase_dryrun_accounting(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_dryrun_peak_share(prefill_times, card)
+    print(f"[dryrun] phase 27 took {time.perf_counter() - t27:.1f} s",
+          flush=True)
 
     records["quantize"]["launches"] = sum(n["quantize"] for n in fl_launches)
     records["flash_attention"]["launches"] = sum(

@@ -1,5 +1,6 @@
-"""Model configs (the LLM zoo) and federated / wireless / compute configs
-(the paper's system model).
+"""Model configs (the LLM zoo), federated / wireless / compute configs
+(the paper's system model) and the dry run's production meshes
+(MeshConfig).
 
 Copy of repro/configs/base.py's dataclasses, kept here so the port
 imports nothing of the reference package. The model sub-configs the port
@@ -281,3 +282,28 @@ class FedConfig:
     def local_rounds(self) -> int:
         """V = ν·log(1/θ) (Remark 3), at least 1."""
         return max(int(round(self.nu * np.log(1.0 / max(self.theta, 1e-9)))), 1)
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    multi_pod: bool = False
+
+    @property
+    def shape(self):
+        return (2, 16, 16) if self.multi_pod else (16, 16)
+
+    @property
+    def axes(self):
+        return ("pod", "data", "model") if self.multi_pod else ("data", "model")
+
+    @property
+    def n_devices(self) -> int:
+        return int(np.prod(self.shape))
+
+    @property
+    def client_axes(self):
+        return ("pod", "data") if self.multi_pod else ("data",)
+
+    @property
+    def n_clients(self) -> int:
+        return 32 if self.multi_pod else 16

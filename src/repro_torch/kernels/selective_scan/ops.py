@@ -18,14 +18,25 @@ recomputed from the saved inputs (h0 included), as the flash wrapper's.
 Neither package has a backward kernel (the reference's Pallas scan has no
 VJP; its training runs the plain scan). On CPU tensors the plain version
 is differentiable.
+
+A fake tensor (torch._subclasses.fake_tensor, as the dry run of
+launch/dryrun.py makes them) carries no data, so neither version can
+run on it: `_ShapeOnlyScan` gives the outputs, and under autograd the
+gradients, by their shapes alone, in one step where the plain version
+would loop over S / chunk chunks. Its forward and backward are each one
+op (`repro_torch::selective_scan_shape` and `..._shape_bwd`, defined
+for fake tensors only) that takes every input and makes every output,
+so a dispatch mode that counts traffic sees the scan read its inputs
+once and write its outputs once. A meta tensor still raises.
 """
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Callable, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.kernels import build
 from repro_torch.kernels.selective_scan.ref import selective_scan_ref
@@ -109,6 +120,8 @@ def selective_scan(
     orders the plain version's sums (on the card, those of the backward);
     the kernel takes it and ignores it."""
     _check(x, dt, A, B, C, D, h0)
+    if is_fake(x):
+        return _ShapeOnlyScan.apply(x, dt, A, B, C, D, h0)
     if x.device.type == "cpu":
         return selective_scan_ref(x, dt, A, B, C, D, chunk=chunk, h0=h0)
     if x.device.type != "cuda":
@@ -157,6 +170,54 @@ class _SelectiveScan(torch.autograd.Function):
             [o for o, _ in pairs], [t for t, n in zip(inputs, need) if n],
             [g for _, g in pairs], allow_unused=True))
         return (*(next(grads) if n else None for n in need), None)
+
+
+@torch.library.custom_op("repro_torch::selective_scan_shape",
+                         mutates_args=())
+def _scan_shape(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+                h0: Optional[torch.Tensor]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    raise RuntimeError("the shape-only scan takes fake tensors only")
+
+
+@_scan_shape.register_fake
+def _(x, dt, A, B, C, D, h0):
+    return (x.new_empty(x.shape),
+            x.new_empty((x.shape[0], x.shape[2], A.shape[1]),
+                        dtype=torch.float32))
+
+
+@torch.library.custom_op("repro_torch::selective_scan_shape_bwd",
+                         mutates_args=())
+def _scan_shape_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                    B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+                    h0: Optional[torch.Tensor], gy: torch.Tensor,
+                    gh: torch.Tensor) -> List[torch.Tensor]:
+    raise RuntimeError("the shape-only scan takes fake tensors only")
+
+
+@_scan_shape_bwd.register_fake
+def _(x, dt, A, B, C, D, h0, gy, gh):
+    return [t.new_empty(t.shape) for t in (x, dt, A, B, C, D, h0)
+            if t is not None]
+
+
+class _ShapeOnlyScan(torch.autograd.Function):
+    """The scan's outputs and gradients on fake tensors: shapes and dtypes
+    only (the FLOP counter counts the plain version's elementwise work as
+    0 either way)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, D, h0):
+        ctx.save_for_backward(x, dt, A, B, C, D, h0)
+        return _scan_shape(x, dt, A, B, C, D, h0)
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        saved = ctx.saved_tensors
+        grads = iter(_scan_shape_bwd(*saved, gy, gh))
+        return tuple(next(grads) if t is not None else None for t in saved)
 
 
 def _launch(x, dt, A, B, C, D, h0) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -8,7 +8,7 @@ reference's row for row.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List
+from typing import Any, Callable, List, Tuple
 
 import numpy as np
 
@@ -42,6 +42,32 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     """fn applied leafwise over trees of one structure."""
     return unflatten(tree, [fn(*xs) for xs in zip(leaves(tree),
                                                   *map(leaves, rest))])
+
+
+def tree_map_with_path(fn: Callable, tree: Any) -> Any:
+    """fn(path, leaf) applied leafwise: `path` is the tuple of keys from
+    the root (a dict's key, a NamedTuple's field name, a tuple's or list's
+    index), as jax.tree_util.tree_map_with_path's DictKey.key /
+    GetAttrKey.name / SequenceKey.idx."""
+
+    def walk(t, path: Tuple):
+        if isinstance(t, dict):
+            return {k: walk(t[k], path + (k,)) for k in sorted(t)}
+        if isinstance(t, (tuple, list)):
+            if hasattr(t, "_fields"):
+                return type(t)(*(walk(x, path + (f,))
+                                 for f, x in zip(t._fields, t)))
+            return type(t)(walk(x, path + (i,)) for i, x in enumerate(t))
+        return fn(path, t)
+
+    return walk(tree, ())
+
+
+def leaves_with_path(tree: Any) -> List[Tuple[Tuple, Any]]:
+    """[(path, leaf)] in `leaves` order (tree_map_with_path's paths)."""
+    out: List = []
+    tree_map_with_path(lambda p, x: out.append((p, x)), tree)
+    return out
 
 
 def tree_bytes(tree: Any) -> int:

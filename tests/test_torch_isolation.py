@@ -30,7 +30,8 @@ SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
            ROOT / "examples" / "defl_vs_fedavg_torch.py",
            ROOT / "examples" / "async_vs_sync_torch.py",
            ROOT / "examples" / "planner_service_demo_torch.py",
-           ROOT / "examples" / "serve_decode_torch.py"]
+           ROOT / "examples" / "serve_decode_torch.py",
+           ROOT / "examples" / "multipod_dryrun_demo_torch.py"]
 MODULES = sorted(
     ".".join(("repro_torch",) + p.relative_to(PKG).with_suffix("").parts)
     .removesuffix(".__init__")
@@ -79,6 +80,12 @@ def test_importing_every_module_leaves_jax_and_repro_out():
     assert {"repro_torch.configs.musicgen_large", "repro_torch.optim.adam",
             "repro_torch.checkpoint", "repro_torch.checkpoint.io",
             "repro_torch.launch.train"} <= set(MODULES)
+    # The dry run and its roofline tools.
+    assert {"repro_torch.launch.dryrun", "repro_torch.launch.mesh",
+            "repro_torch.launch.specs_inputs", "repro_torch.launch.postprocess",
+            "repro_torch.sharding", "repro_torch.sharding.specs",
+            "repro_torch.utils.analytic", "repro_torch.utils.flops",
+            "repro_torch.utils.hlo"} <= set(MODULES)
 
 
 def test_checkpoint_io_needs_no_msgpack_package():
