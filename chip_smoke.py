@@ -276,13 +276,15 @@ Phases (each prints its own lines; any failure exits non-zero):
      qwen3-32b and llava-next-34b (also with a vision prefix); an MoE
      config prints its router's smallest top-k margin and its dropped
      shares, and in bf16 may flip a greedy token only at a near-tie;
- 27. dry run (no kernel): (a) `python -m repro_torch.launch.dryrun --arch
-     all --shape all --mesh single` in this process (its 40 pairs in
-     spawned workers, on fake tensors): every pair ok, no worker
-     initialised CUDA, this process's CUDA allocation unchanged; the wall
-     time, and past 120 s the costliest pairs; each pair's per-device
-     argument bytes and counted FLOPs over the analytic model's; then the
-     multipod demo twin (gemma-7b train_4k on the 2x16x16 mesh); (b)
+ 27. dry run (no kernel): (a) one pair of `python -m
+     repro_torch.launch.dryrun` (qwen2-0.5b train_4k on the single mesh,
+     on fake tensors) in a spawned worker, as the sweep runs each of its
+     40 (the sweep is host work: the CPU tests and the README's command
+     run it), started before phase 25 on an idle host core: ok, the
+     worker did not initialise CUDA; its FedAvg plan and counted FLOPs
+     over the analytic model's; then the multipod demo twin (gemma-7b
+     train_4k on the 2x16x16 mesh), this process's CUDA allocation
+     unchanged by it; (b)
      qwen2-0.5b decode_32k on a (1, 1) mesh: the dry run's argument bytes
      within 1% of the card's allocation for the same params, cache and
      tokens, and three decode steps (CUDA events) against max(counted
@@ -291,12 +293,28 @@ Phases (each prints its own lines; any failure exits non-zero):
      15, 22 and 25 (not run again) beside its model, counted and analytic
      FLOPs at that shape, model FLOPs / (prefill s x PEAK_FLOPS) at most
      1.05.
+ 28. `shard_clients` across ranks, uncompressed: (a) `mnist_paper` at full
+     width in an NCCL group of one rank (a HashStore), 3 rounds: records
+     and params bit-equal to the unsharded run's, the fold matmul alone
+     launched; (b) two gloo ranks spawned on the one card, CUDA tensors
+     through gloo: `mnist_paper` over 5 lanes each (3 rounds, then a
+     2-seed fleet) and `mnist_sampled` at K = 50 of M = 10,000 (25 lanes
+     a rank): records exact, losses within 1e-5 relative and params
+     within 5e-4 of the unsharded runs', the two ranks bit-equal, the
+     fold matmul launched on each rank (counted there) and nothing else;
+     (c) 'int8_shardmap' across the two ranks: int8 codes on the wire,
+     within one quantizer step of the largest client delta of
+     'allreduce' at mnist_paper's width, within 2/127 on the reference
+     test's round; (d) steady s/round of (a) and of a rank of (b) beside
+     the unsharded round, and the all_reduce's ms a round in each (none
+     of (d) a gate).
 
-Phases 10, 11, 12, 18, 19, 20, 21 and 17 run right after phase 5, in that
-order, phases 13-16 after phase 9, then 22, 23, 24, 25, 26 and 27;
+Phases 10, 11, 12, 18, 19, 20, 21, 17 and 28 run right after phase 5, in
+that order, phases 13-16 after phase 9, then 22, 23, 24, 25, 26 and 27;
 quantize's `launches` in the JSON line are those of phases 4, 10, 11, 12 (a, b, c's
 guarded run and d), 17 (b), 18, 19, 20 and 21, the fold matmul's those of
-the same FL paths, of the quickstart twin, 17 (a, c) and 24 (a)'s FedAvg,
+the same FL paths, of the quickstart twin, 17 (a, c), 28 (a, and (b)'s
+ranks, counted in each rank's process) and 24 (a)'s FedAvg,
 flash attention's those of phases 6, 13, 15, 22, 24 (a, e), 25 and 26's
 card runs (24 + 28 + 9 + 48 + 192 + 8 + 16 + 24), the selective scan's
 those of phases 8 and 24 (f) (64 + 8). The last lines are the
@@ -4000,8 +4018,10 @@ def phase_train_checkpoint(trainer):
 
 # -- the dry run and its accounting on the card (phase 27) ---------------------
 
-# A dry-run sweep past this many seconds names the pairs that cost it.
-SWEEP_BUDGET_S = 120
+# (a): the one pair run in a spawned worker, as the sweep runs each of its
+# 40 (`python -m repro_torch.launch.dryrun --arch all --shape all`, a CPU
+# job: the tests and the README run it).
+SWEEP_ARCH, SWEEP_SHAPE = "qwen2-0.5b", "train_4k"
 # (b): the pair whose accounting the card checks, on a (1, 1) mesh: the
 # whole pair on one device (1.98 GB of float32 params, a 51.5 GB bf16 KV
 # cache, 128 int32 tokens).
@@ -4012,40 +4032,50 @@ ACCOUNT_BYTES_RTOL = 0.01
 SHARE_LIMIT = 1.05
 
 
-def phase_dryrun_sweep():
-    """27 (a): `python -m repro_torch.launch.dryrun --arch all --shape all
-    --mesh single`, in this process (its pairs in spawned workers), then
-    the multipod demo twin's one pair on the 512-device mesh: every pair
-    ok (each prints its argument bytes a device and its counted FLOPs over
-    analytic_costs' and over the model of the step run), no worker initialised CUDA and this process's
-    allocation is unchanged."""
-    import runpy
-    import tempfile
-    import torch
+def start_dryrun_pair():
+    """27 (a)'s pair (SWEEP_ARCH SWEEP_SHAPE on the single mesh), started
+    in one spawned worker, as `launch/dryrun.py`'s sweep runs each pair:
+    (executor, future, start time). It is host work on a core the card
+    phases leave idle, so it starts before phases 25-26 (device-bound) and
+    phase 27 reads it."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
     from repro_torch.launch import dryrun
-    before = torch.cuda.memory_allocated()
-    with tempfile.TemporaryDirectory() as out:
-        t0 = time.perf_counter()
-        rc = dryrun.main(["--arch", "all", "--shape", "all", "--mesh",
-                          "single", "--out", out])
-        wall = time.perf_counter() - t0
-        recs = [json.loads(p.read_text())
-                for p in sorted(Path(out).glob("*.json"))]
-    after = torch.cuda.memory_allocated()
-    bad = [f"{r['arch']} {r['shape']}" for r in recs
-           if not r["ok"] or r["cuda_initialized"]]
-    print(f"[dryrun] sweep of {len(recs)} pairs on the single mesh: rc {rc},"
-          f" {wall:.1f} s wall, {sum(r['total_seconds'] for r in recs):.1f}"
-          f" s in its workers; CUDA memory allocated {before} -> {after} B",
+    ex = ProcessPoolExecutor(max_workers=1,
+                             mp_context=multiprocessing.get_context("spawn"))
+    return ex, ex.submit(dryrun.run_pair, SWEEP_ARCH, SWEEP_SHAPE, "single",
+                         ""), time.perf_counter()
+
+
+def phase_dryrun_sweep(pending):
+    """27 (a): the pair `start_dryrun_pair` started: ok, and its worker did
+    not initialise CUDA; then the multipod demo twin's one pair on the
+    512-device mesh in this process, whose CUDA allocation must not move.
+    The 40-pair sweep is host work (about a minute on the card's 8 host
+    cores) that would hold the card idle: the CPU tests and the README's
+    command run it."""
+    import runpy
+    import torch
+    ex, future, t0 = pending
+    try:
+        rec = future.result()
+    finally:
+        ex.shutdown()
+    wall = time.perf_counter() - t0
+    print(f"[dryrun] {SWEEP_ARCH} {SWEEP_SHAPE} on the single mesh in a "
+          f"spawned worker: ok {rec['ok']}, done {wall:.1f} s after it "
+          f"started ({rec['total_seconds']:.1f} s in the worker), worker CUDA "
+          f"initialised {rec['cuda_initialized']}; {rec.get('aggregation')} "
+          f"plan {rec.get('collectives', {}).get('count')} collectives, "
+          f"{rec.get('collectives', {}).get('total_wire_bytes', 0):.4g} wire "
+          f"B a device; counted FLOPs over analytic "
+          f"{rec.get('flops_vs_analytic', float('nan')):.4f} (as run "
+          f"{rec.get('flops_vs_analytic_as_run', float('nan')):.4f})",
           flush=True)
-    if wall > SWEEP_BUDGET_S:
-        top = sorted(recs, key=lambda r: -r["total_seconds"])[:8]
-        print("[dryrun]   the costliest pairs: " + ", ".join(
-            f"{r['arch']} {r['shape']} {r['total_seconds']:.1f} s"
-            for r in top), flush=True)
-    if rc or bad or len(recs) != 40 or after != before:
-        raise SystemExit(f"the dry-run sweep failed: rc {rc}, pairs not ok "
-                         f"or with CUDA initialised: {bad}")
+    if not rec["ok"] or rec["cuda_initialized"]:
+        raise SystemExit(f"the dry-run pair failed: {rec.get('error')}, "
+                         f"worker CUDA {rec['cuda_initialized']}")
+    before = torch.cuda.memory_allocated()
     demo = runpy.run_path(str(Path(__file__).resolve().parent / "examples"
                               / "multipod_dryrun_demo_torch.py"),
                           run_name="multipod_demo")
@@ -4155,6 +4185,315 @@ def phase_dryrun_peak_share(prefill_times, card):
         if not share <= SHARE_LIMIT:
             raise SystemExit(f"{arch}'s prefill beat the card's peak: a "
                              f"count or a constant is wrong")
+
+
+# -- shard_clients across ranks (phase 28) ---------------------------------------
+
+# The ranks of (b)-(c): two gloo processes sharing the one card.
+SHARD_WORLD = 2
+SHARD_ROUNDS = 3
+SHARD_SEEDS = (0, 1)
+# (b)'s sampled run: K = 50 lanes of M = 10,000 clients, 25 lanes a rank.
+SHARD_M, SHARD_K = 10_000, 50
+# (d): timed chunks of 3 rounds after (a)-(b)'s runs, and collective calls.
+SHARD_TIMED_CHUNKS = 4
+SHARD_COLLECTIVE_CALLS = 20
+
+
+def shard_specs():
+    """(uncompressed mnist_paper, mnist_sampled at K = 50 of M = 10,000),
+    both with shard_clients=True."""
+    from repro_torch.federated import experiment
+    from repro_torch.federated.experiment import CohortSpec, PopulationSpec
+    paper = experiment.get("mnist_paper").replace(shard_clients=True)
+    sampled = experiment.get("mnist_sampled").replace(
+        population=PopulationSpec(M=SHARD_M, cohort=CohortSpec(K=SHARD_K)),
+        shard_clients=True)
+    return paper, sampled
+
+
+def _summary(res):
+    """A SimResult as host values: (records, losses, test accs, params)."""
+    from repro_torch.utils.tree import leaves
+    return (_records(res), [r.train_loss for r in res.history],
+            [r.test_acc for r in res.history],
+            [x.detach().cpu().clone() for x in leaves(res.params)])
+
+
+def _shard_gaps(got, want):
+    """(records exact, max relative loss gap, max param gap, bit-equal)."""
+    loss = max(abs(a - b) / abs(b) for a, b in zip(got[1], want[1]))
+    param = max(float((x - y).abs().max()) for x, y in zip(got[3], want[3]))
+    same = loss == 0 and got[2] == want[2] and all(
+        bool((x == y).all()) for x, y in zip(got[3], want[3]))
+    return got[0] == want[0], loss, param, same
+
+
+def _sync(device):
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _steady_s(sim, state):
+    """Median s/round of SHARD_TIMED_CHUNKS chunks of 3 rounds (no eval),
+    after one chunk of warm-up."""
+    state, _ = sim.run_chunk(state, 3)
+    per_round = []
+    for _ in range(SHARD_TIMED_CHUNKS):
+        t0 = time.perf_counter()
+        state, _ = sim.run_chunk(state, 3)
+        _sync(sim.device)
+        per_round.append((time.perf_counter() - t0) / 3)
+    return statistics.median(per_round)
+
+
+def _n_params(sim):
+    from repro_torch.utils.tree import leaves
+    return sum(x.numel() for x in leaves(sim._init_params))
+
+
+def _collective_ms(n_params, device):
+    """ms of one round's sum_partials: an all_reduce of n_params float32
+    on `device` (host clock around synchronised calls)."""
+    import torch
+    from repro_torch.sharding import collectives
+    buf = torch.randn(n_params, device=device)
+    collectives.sum_partials([buf])
+    _sync(device)
+    t0 = time.perf_counter()
+    for _ in range(SHARD_COLLECTIVE_CALLS):
+        collectives.sum_partials([buf])
+    _sync(device)
+    return (time.perf_counter() - t0) / SHARD_COLLECTIVE_CALLS * 1e3
+
+
+def _int8_shardmap_round(sim):
+    """(c): one round of `sim`'s clients through 'int8_shardmap' on this
+    rank's lanes against 'allreduce' over all of them, from the same
+    batches: (max gap, the largest client delta's quantizer step, the
+    dtypes the round gathered). Also the reference test's quadratic round
+    (C = 4, V = 3; its bound 2/127): (its gap, dtypes)."""
+    import torch
+    from repro_torch.federated import client, mesh_rounds
+    from repro_torch.federated.simulation import _upload
+    from repro_torch.optim.sgd import sgd
+    from repro_torch.sharding import collectives
+    from repro_torch.utils.tree import leaves, tree_map
+    dtypes, gather = [], collectives.gather_rows
+
+    def recording(x, dim=0, group=None):
+        dtypes.append(x.dtype)
+        return gather(x, dim, group)
+
+    def one_round(vg, opt, params, batches, weights):
+        lanes = collectives.lane_slice(weights.shape[0])
+        plain = mesh_rounds.build_round_step(vg, opt, "allreduce")
+        want = plain(params, opt.init(params), batches, weights)
+        step = mesh_rounds.build_round_step(vg, opt, "int8_shardmap")
+        local = tree_map(lambda x: x[lanes], params)
+        dtypes.clear()
+        mesh_rounds.collectives.gather_rows = recording
+        try:
+            got = step(local, opt.init(local),
+                       tree_map(lambda x: x[lanes], batches), weights)
+        finally:
+            mesh_rounds.collectives.gather_rows = gather
+        gap = max(float((g - w[lanes]).abs().max())
+                  for g, w in zip(leaves(got[0]), leaves(want[0])))
+        return gap, list(dtypes)
+
+    C, V = sim._lanes, sim.fed.local_rounds
+    params = mesh_rounds.replicate_clients(sim._init_params, C)
+    iters = sim._make_iters(0)
+    batches = tree_map(lambda x: _upload(x, sim.device),
+                       client.stack_client_batches(iters, V))
+    local = mesh_rounds.local_steps_fn(sim.value_and_grad, sim.opt)
+    new = local(params, sim.opt.init(params), batches)[0]
+    step = max(float((n - o).abs().max()) for n, o in
+               zip(leaves(new), leaves(params))) / 127
+    cnn_gap, cnn_dtypes = one_round(sim.value_and_grad, sim.opt, params,
+                                    batches, sim._weights)
+
+    def quad(p, batch):
+        diff = p["w"] - batch["target"]
+        return 0.5 * torch.sum(diff * diff)
+
+    qp = mesh_rounds.replicate_clients(
+        {"w": torch.ones(8, device=sim.device)}, 4)
+    target = torch.stack([torch.full((3, 8), float(t), device=sim.device)
+                          for t in range(4)])
+    q_gap, _ = one_round(mesh_rounds.vmapped_value_and_grad(quad), sgd(0.05),
+                         qp, {"target": target},
+                         torch.full((4,), 0.25, device=sim.device))
+    return cnn_gap, step, cnn_dtypes, q_gap
+
+
+def _shard_rank(rank, rdzv, out, device, specs):
+    """One of (b)'s two gloo ranks on `device`, the one card
+    (torch.multiprocessing.spawn runs it): the sharded runs of `specs`
+    (shard_specs()), their fold launches, (c) and (d)'s times, pickled to
+    `out`."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels.fold_matmul import ops as fm_ops
+    from repro_torch.kernels.quantize import ops as q_ops
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{rdzv}", rank=rank,
+                            world_size=SHARD_WORLD)
+    paper, sampled = specs
+    res = {}
+    q_ops.launches = fm_ops.launches = 0
+    sim = paper.build(device=device)
+    res["lanes"] = (sim._shard, sim._lanes_local, str(sim.device))
+    state, r = sim.run(sim.init(), max_rounds=SHARD_ROUNDS,
+                       eval_every=SHARD_ROUNDS)
+    res["paper"] = _summary(r)
+    fleet = sim.run_fleet(seeds=SHARD_SEEDS, max_rounds=SHARD_ROUNDS,
+                          eval_every=SHARD_ROUNDS)
+    res["fleet"] = [_summary(m) for m in fleet.results]
+    ssim = sampled.build(device=device)
+    res["sampled_lanes"] = ssim._lanes_local
+    _, r = ssim.run(ssim.init(), max_rounds=SHARD_ROUNDS,
+                    eval_every=SHARD_ROUNDS)
+    res["sampled"] = _summary(r)
+    res["launches"] = {"fold_matmul": fm_ops.launches,
+                       "quantize": q_ops.launches}
+    res["s_per_round"] = _steady_s(sim, state)
+    res["collective_ms"] = _collective_ms(_n_params(sim), sim.device)
+    res["int8"] = _int8_shardmap_round(sim)
+    with open(Path(out) / f"rank{rank}.pkl", "wb") as f:
+        pickle.dump(res, f)
+    dist.destroy_process_group()
+
+
+def phase_shard_nccl(counters, card, device="cuda", backend="nccl"):
+    """28 (a): uncompressed mnist_paper with shard_clients=True in an NCCL
+    group of one rank (a HashStore), 3 rounds: records and params bit-equal
+    to the unsharded run's, the fold matmul launched and no other kernel;
+    then both runs' steady s/round and the all_reduce's ms a round.
+    Returns (launches, the unsharded run's summary and s/round)."""
+    import torch.distributed as dist
+    paper, _ = shard_specs()
+    plain = _on_card(paper.replace(shard_clients=False).build(device=device),
+                     "28 (a)")
+    state, res = plain.run(plain.init(), max_rounds=SHARD_ROUNDS,
+                           eval_every=SHARD_ROUNDS)
+    want, plain_s = _summary(res), _steady_s(plain, state)
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        sim = _on_card(paper.build(device=device), "28 (a)")
+        (state, res), launches = _launched(counters, lambda: sim.run(
+            sim.init(), max_rounds=SHARD_ROUNDS, eval_every=SHARD_ROUNDS))
+        got, shard_s = _summary(res), _steady_s(sim, state)
+        coll = _collective_ms(_n_params(sim), sim.device)
+        lanes = (sim._shard, sim._lanes_local, str(sim.device))
+    finally:
+        dist.destroy_process_group()
+    exact, loss, param, same = _shard_gaps(got, want)
+    print(f"[shard] (a) mnist_paper uncompressed (plan b*="
+          f"{sim.fed.batch_size}, V={sim.fed.local_rounds}), shard_clients in "
+          f"a {backend} group of one rank (sharded, lanes, device {lanes}), "
+          f"{SHARD_ROUNDS} rounds: "
+          f"records exact {exact}, loss gap {loss:.3g}, param gap "
+          f"{param:.3g}, bit-equal to the unsharded run {same}; launches "
+          f"{launches}", flush=True)
+    print(f"[shard] (d) steady state on {card}: unsharded {plain_s!r} s per "
+          f"round, {backend} world of one {shard_s!r} s per round; its "
+          f"all_reduce "
+          f"of {_n_params(sim):,} float32 {coll:.4f} ms a round "
+          f"({SHARD_TIMED_CHUNKS} chunks of 3, no eval; "
+          f"{SHARD_COLLECTIVE_CALLS} calls)", flush=True)
+    _check_uncompressed("shard", launches)
+    if not (lanes[0] and same):
+        raise SystemExit("28 (a): a world of one is not the unsharded run")
+    return launches, want, plain_s
+
+
+def phase_shard_gloo(counters, card, want_paper, plain_s, device="cuda"):
+    """28 (b)-(d): two gloo ranks spawned on the one card, each with 5 of
+    mnist_paper's lanes (3 rounds, then a 2-seed fleet) and 25 of
+    mnist_sampled's 50 (M = 10,000): records exact and params within 1e-5 /
+    5e-4 of the unsharded runs' on this card, the ranks bit-equal, the
+    fold matmul launched on each rank and nothing else; (c)
+    'int8_shardmap' across the ranks with CUDA tensors: int8 on the wire,
+    within one quantizer step of the largest client delta of 'allreduce'
+    at mnist_paper's width and within 2/127 on the reference test's
+    round; (d) a rank's s/round and all_reduce ms. Returns the ranks'
+    launches."""
+    import tempfile
+    import torch.multiprocessing as mp
+    paper, sampled = shard_specs()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(_shard_rank, args=(
+            f"{tmp}/rdzv", tmp, device, (paper, sampled)),
+            nprocs=SHARD_WORLD, join=False, start_method="spawn")
+        # The unsharded runs, while the ranks start up and reach the card.
+        psim = _on_card(paper.replace(shard_clients=False).build(
+            device=device), "28 (b)")
+        fleet = psim.run_fleet(seeds=SHARD_SEEDS, max_rounds=SHARD_ROUNDS,
+                               eval_every=SHARD_ROUNDS)
+        ssim = _on_card(sampled.replace(shard_clients=False).build(
+            device=device), "28 (b)")
+        want = {"paper": want_paper,
+                "fleet": [_summary(m) for m in fleet.results],
+                "sampled": _summary(ssim.run(
+                    ssim.init(), max_rounds=SHARD_ROUNDS,
+                    eval_every=SHARD_ROUNDS)[1])}
+        while not ctx.join():
+            pass
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(SHARD_WORLD):
+            with open(Path(tmp) / f"rank{r}.pkl", "rb") as f:
+                ranks.append(pickle.load(f))
+    print(f"[shard] (b) {SHARD_WORLD} gloo ranks on one card: {wall:.1f} s "
+          f"wall (spawn and this process's unsharded runs included); lanes {[r['lanes'] for r in ranks]}, "
+          f"sampled lanes {[r['sampled_lanes'] for r in ranks]}; launches "
+          f"{[r['launches'] for r in ranks]}", flush=True)
+    lanes = (paper.fed.n_devices // SHARD_WORLD,
+             sampled.cohort_spec().K // SHARD_WORLD)
+    ok = all(r["lanes"][:2] == (True, lanes[0])
+             and r["sampled_lanes"] == lanes[1]
+             and r["launches"]["fold_matmul"] > 0
+             and not r["launches"]["quantize"] for r in ranks)
+    runs = [("paper", ranks[0]["paper"], ranks[1]["paper"], want["paper"])]
+    runs += [(f"fleet seed {s}", a, b, w) for s, a, b, w in zip(
+        SHARD_SEEDS, ranks[0]["fleet"], ranks[1]["fleet"], want["fleet"])]
+    runs.append(("sampled", ranks[0]["sampled"], ranks[1]["sampled"],
+                 want["sampled"]))
+    for name, a, b, w in runs:
+        same_ranks = _shard_gaps(a, b)[3]
+        exact, loss, param, same = _shard_gaps(a, w)
+        print(f"[shard] (b) {name}: ranks bit-equal {same_ranks}; against "
+              f"the unsharded run records exact {exact}, loss gap "
+              f"{loss:.3g} (tol {FLEET_LOSS_RTOL:g}), param gap {param:.3g} "
+              f"(tol {FLEET_PARAM_ATOL:g}), bit-equal {same}", flush=True)
+        ok = ok and same_ranks and exact and loss <= FLEET_LOSS_RTOL \
+            and param <= FLEET_PARAM_ATOL
+    for r, res in enumerate(ranks):
+        cnn_gap, step, dtypes, q_gap = res["int8"]
+        print(f"[shard] (c) rank {r} int8_shardmap: mnist_paper's round "
+              f"{cnn_gap:.3g} from allreduce (one quantizer step of the "
+              f"largest client delta {step:.3g}); the reference test's round "
+              f"{q_gap:.3g} (tol {2 / 127:.4g}); gathered dtypes "
+              f"{sorted(set(str(d) for d in dtypes))}", flush=True)
+        ok = ok and cnn_gap <= step and q_gap <= 2 / 127 + 1e-6 \
+            and "torch.int8" in {str(d) for d in dtypes}
+    print(f"[shard] (d) steady state on {card}: unsharded {plain_s!r} s per "
+          f"round; a gloo rank's {[r['s_per_round'] for r in ranks]!r} s per "
+          f"round; its all_reduce of {_n_params(psim):,} float32 through "
+          f"gloo {[round(r['collective_ms'], 4) for r in ranks]} ms a round",
+          flush=True)
+    if not ok:
+        raise SystemExit("28 (b)-(c): a sharded run broke its contract")
+    launches = {k: 0 for k in counters}
+    launches["fold_matmul"] = sum(r["launches"]["fold_matmul"]
+                                  for r in ranks)
+    return launches
 
 
 def main() -> int:
@@ -4269,6 +4608,16 @@ def main() -> int:
     del fig2
     gc.collect()
     torch.cuda.empty_cache()
+
+    # -- 28. shard_clients across ranks: NCCL at world 1, two gloo ranks ------
+    t28 = time.perf_counter()
+    launches, want_paper, plain_s = phase_shard_nccl(counters, card)
+    fl_launches.append(launches)
+    fl_launches.append(phase_shard_gloo(counters, card, want_paper, plain_s))
+    print(f"[shard] phase 28 took {time.perf_counter() - t28:.1f} s",
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
     for launches in fl_launches:
         others = {k: n for k, n in launches.items()
                   if k not in FL_KERNELS and n}
@@ -4329,6 +4678,7 @@ def main() -> int:
     # -- 25, 26. qwen3-moe-30b-a3b serving (16 of 48 layers); the five
     # archs of the MoE family at smoke size, card vs CPU -----------------------
     t25 = time.perf_counter()
+    dryrun_pair = start_dryrun_pair()
     attn_launches.append(phase_serve(counters, "qwen3-moe-30b-a3b",
                                      prefill_times))
     gc.collect()
@@ -4346,7 +4696,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t27 = time.perf_counter()
-    phase_dryrun_sweep()
+    phase_dryrun_sweep(dryrun_pair)
     phase_dryrun_accounting(card)
     gc.collect()
     torch.cuda.empty_cache()

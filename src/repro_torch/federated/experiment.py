@@ -51,6 +51,7 @@ from repro_torch.federated.traces import TraceSpec, replay_scenario
 from repro_torch.kernels.quantize.ref import stochastic_noise
 from repro_torch.models import cnn
 from repro_torch.optim.sgd import sgd
+from repro_torch.sharding import collectives
 from repro_torch.utils.tree import tree_map
 
 # Calibration (the reference's): per-sample compute ~10 ms at b=1 on the
@@ -160,8 +161,12 @@ class ExperimentSpec:
                    (dense; build() warns DeprecationWarning from
                    DENSE_M_DEPRECATION_THRESHOLD clients up).
     shard_clients  the reference's client-axis sharding ('scan', no
-                   compression): on one device the port runs the
-                   unsharded step (Simulator's docstring).
+                   compression) over the ranks of the caller's default
+                   torch.distributed group, one process a device
+                   (`torchrun --nproc-per-node N`); without a group one
+                   device runs the unsharded step (Simulator's
+                   docstring). build() places a sharded run on its
+                   rank's card (collectives.device_for_rank).
     model          registry name (MODELS) or a literal cnn.CNNConfig.
     dataset        'mnist' | 'cifar' (synthetic *-like tasks, DATASETS).
     n_train/n_test dataset sizes; alpha the Dirichlet non-IID knob.
@@ -449,6 +454,8 @@ class ExperimentSpec:
         deterministic virtual shard a client (partition.partition_virtual,
         O(1) host state a client)."""
         dev = resolve_device(device)
+        if self.shard_clients and collectives.initialized():
+            dev = collectives.device_for_rank(dev)
         make = DATASETS[self.dataset]
         pop = self.device_population()
         fed = self._fed_with_plan(self._solve_plan(pop))

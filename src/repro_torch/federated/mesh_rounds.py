@@ -36,13 +36,29 @@ runs arrival events instead of rounds: one client a event, popped from a
 device-side finish-time array, its update staleness-weighted into a
 buffer that fires an aggregation every K kept updates.
 
-Aggregation modes:
-  'allreduce'       the weighted FedAvg mean in float32 (paper-faithful).
-  'int8_stochastic' every client's delta goes through the int8
-                    stochastic-rounding quantize/dequantize roundtrip of
-                    federated/compression.py (one kernel launch for all
-                    clients of all members), then weighted FedAvg of the
-                    reconstructions.
+Aggregation modes (the reference's five):
+  'allreduce'          the weighted FedAvg mean in float32
+                       (paper-faithful), every lane on this process.
+  'allreduce_shardmap' the client axis sharded over the ranks of the
+                       default process group (sharding/collectives.py):
+                       each rank folds the weighted sum of its own lanes,
+                       one all_reduce adds the partials, each rank
+                       broadcasts the sum onto its rows (the reference's
+                       `_psum_shardmap_sync`). Simulator(shard_clients=
+                       True) runs it.
+  'int8_shardmap'      sharded too: each lane's delta quantized to int8
+                       per row (scale absmax/127), the int8 codes and
+                       float32 scales all-gathered, dequantized and
+                       combined after the gather (`_int8_shardmap_sync`).
+  'int8_gather'        the same quantization on one process, contracted
+                       over the C lanes (`_int8_gather_mean_bcast`).
+  'int8_stochastic'    every client's delta goes through the int8
+                       stochastic-rounding quantize/dequantize roundtrip
+                       of federated/compression.py (one kernel launch for
+                       all clients of all members), then weighted FedAvg
+                       of the reconstructions.
+The two deterministic int8 modes quantize in plain torch, as the
+reference does in XLA, outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -55,7 +71,13 @@ from torch.func import grad_and_value, vmap
 from repro_torch.federated import compression
 from repro_torch.kernels.fold_matmul.ops import fold_matmul
 from repro_torch.optim.api import Optimizer, apply_updates
-from repro_torch.utils.tree import leaves, tree_map
+from repro_torch.sharding import collectives
+from repro_torch.utils.tree import leaves, tree_map, unflatten
+
+AGGREGATIONS = ("allreduce", "allreduce_shardmap", "int8_shardmap",
+                "int8_gather", "int8_stochastic")
+# The modes whose round runs on this rank's lanes of the client axis.
+SHARDED = ("allreduce_shardmap", "int8_shardmap")
 
 
 def vmapped_value_and_grad(loss_fn: Callable,
@@ -275,6 +297,79 @@ def _weighted_mean_bcast(stacked, weights):
         stacked)
 
 
+def _gather_members(x: torch.Tensor, S: int, group=None) -> torch.Tensor:
+    """(S*Cl, ...) rows of this rank's Cl lanes of S members, members
+    major -> (S*C, ...) the rows of every rank's lanes, members major: one
+    all_gather along the lane axis."""
+    lanes = collectives.gather_rows(x.reshape(S, -1, *x.shape[1:]), dim=1,
+                                    group=group)
+    return lanes.reshape(-1, *x.shape[1:])
+
+
+def _psum_mean_bcast(stacked, weights, group=None):
+    """The reference's `_psum_shardmap_sync`: each rank folds the weighted
+    sum of its own lanes (weights: this rank's (Cl,) or (S, Cl) columns;
+    `_weighted_client_sum`, one fma chain over its lanes), ONE all_reduce
+    adds every leaf's partial (collectives.sum_partials), and each member's
+    sum is broadcast onto its rows. In a world of one the partial is the
+    unsharded sum and the all_reduce leaves it as it is, bit for bit."""
+    xs = leaves(stacked)
+    sums = collectives.sum_partials(
+        [_weighted_client_sum(weights, x) for x in xs], group)
+    return unflatten(stacked, [_bcast_members(m, x)
+                               for m, x in zip(sums, xs)])
+
+
+def _int8_rows(x: torch.Tensor):
+    """The reference's deterministic int8 quantization of each row of x
+    (N, P) float32: (codes int8 (N, P), scales float32 (N, 1)) with scale =
+    absmax / 127 (1 where absmax = 0) and codes clip(round(x / scale),
+    -127, 127); torch.round rounds half to even, as jnp.round. Tensor over
+    tensor: a true division, as the reference's (a Python float would make
+    CUDA multiply by its reciprocal)."""
+    absmax = torch.amax(torch.abs(x), dim=1, keepdim=True)
+    scale = torch.where(absmax > 0, absmax / torch.full_like(absmax, 127.0),
+                        1.0)
+    codes = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return codes, scale
+
+
+def _int8_mean_bcast(new_params, old_params, weights, gather_S=None,
+                     group=None):
+    """The reference's `_int8_gather_mean_bcast` and, with gather_S (the
+    member count), its `_int8_shardmap_sync`: each lane's delta quantized
+    per row (`_int8_rows`; a dropped lane's row was reset, so it sends
+    zeros), with gather_S the int8 codes and float32 scales all-gathered
+    over the ranks (int8 on the wire), then dequantized, combined with the
+    full (C,) or (S, C) weights (`_weighted_client_sum`) and added to each
+    member's old global model (its first row: all its rows are equal
+    before the round), broadcast onto its rows."""
+    def agg(new, old):
+        delta = (new - old).to(torch.float32)
+        codes, scale = _int8_rows(delta.reshape(delta.shape[0], -1))
+        if gather_S is not None:
+            codes = _gather_members(codes, gather_S, group)
+            scale = _gather_members(scale, gather_S, group)
+        mean = _weighted_client_sum(weights, codes.to(torch.float32) * scale)
+        glob = old.reshape(mean.shape[0], -1, mean.shape[1])[:, 0]
+        out = (glob.to(torch.float32) + mean).reshape(-1, *old.shape[1:])
+        return _bcast_members(out, new)
+
+    return tree_map(agg, new_params, old_params)
+
+
+def _gather_round(losses, mask, S: int, group=None):
+    """The cross-rank inputs of a sharded round, gathered before anything
+    reads them, as the reference's global arrays under GSPMD: each lane's
+    loss and, under a scenario, its post-guard participation flag, in one
+    all_gather. (S*Cl,) each -> (S*C,) each."""
+    if mask is None:
+        return _gather_members(losses, S, group), None
+    both = _gather_members(
+        torch.stack([losses, mask.to(torch.float32)], dim=1), S, group)
+    return both[:, 0], both[:, 1]
+
+
 def _int8_stochastic_mean_bcast(new_params, old_params, weights, u):
     """Every client's delta through the int8 quantize/dequantize
     roundtrip (u: the (S*C, rows, 1024) rounding noise; all clients of
@@ -298,12 +393,13 @@ def _int8_stochastic_mean_bcast(new_params, old_params, weights, u):
 
 def build_round_step(value_and_grad: Callable, opt: Optimizer,
                      aggregation: str = "allreduce", guard=None,
-                     envelope: bool = False):
+                     envelope: bool = False, group=None):
     """round_step(params_C, opt_C, batches, weights, u=None, mask=None,
     env=None) -> (params_C', opt_C', per_client_loss, mask'). The leading
     axis of params_C, opt_C and batches (leaves (N, V, ...)) holds S
     members of C clients each, members major (N = S*C; S = 1 for one run);
     u is the (N, rows, 1024) quantizer noise, needed by 'int8_stochastic'.
+    `aggregation` is one of AGGREGATIONS (the module docstring).
 
     Without a mask, weights are the (C,) FedAvg weights summing to 1,
     shared by the members. With a (N,) participation mask (a scenario's
@@ -320,13 +416,24 @@ def build_round_step(value_and_grad: Callable, opt: Optimizer,
     dropped or rejected client sends the quantize kernel an all-zero delta
     and never a NaN.
 
+    The sharded modes (SHARDED) run on this rank's lanes of the default
+    process group's client axis (`group`: another group, for tests): the
+    tensors hold N = S*Cl rows, Cl = C/n of each member's C lanes
+    (collectives.lane_slice), while weights stay whole, (C,) or (S, C).
+    The guard and the resets act on the local rows; then every lane's loss
+    and post-guard mask are gathered (`_gather_round`), so the
+    renormalised weights, the quorum count and the loss fold read all C
+    lanes as the unsharded round does: a lane rejected on one rank changes
+    every rank's weights. per_client_loss and mask' come back whole, (S*C,).
+
     value_and_grad(params_N, batch_N[, sample_mask, n]) is the stacked
     clients' gradient and loss (local_steps_fn). envelope=True runs the
     Study's (V, b) envelope form: batches leaves are (N, V_env, B_env,
     ...) and env holds the per-row envelope masks
-    (envelope_local_steps_fn).""" 
-    if aggregation not in ("allreduce", "int8_stochastic"):
+    (envelope_local_steps_fn)."""
+    if aggregation not in AGGREGATIONS:
         raise ValueError(aggregation)
+    sharded = aggregation in SHARDED
     if envelope:
         local = envelope_local_steps_fn(value_and_grad, opt)
     else:
@@ -338,16 +445,26 @@ def build_round_step(value_and_grad: Callable, opt: Optimizer,
         new_p, new_s, losses = local(params_C, opt_C, batches, env)
         if guard is not None:
             new_p, mask = _guard_clients(guard, new_p, params_C, losses, mask)
-        any_p = None
         if mask is not None:
-            weights, any_p = _participation_weights(weights, mask)
             new_p = _select_participating_state(new_p, params_C, mask)
             new_s = _select_participating_state(new_s, opt_C, mask)
             losses = torch.where(mask > 0, losses, 0.0)
+        lanes, S = slice(None), None
+        if sharded:
+            lanes = collectives.lane_slice(weights.shape[-1], group)
+            S = losses.shape[0] // (lanes.stop - lanes.start)
+            losses, mask = _gather_round(losses, mask, S, group)
+        any_p = None
+        if mask is not None:
+            weights, any_p = _participation_weights(weights, mask)
         if aggregation == "allreduce":
             agg_p = _weighted_mean_bcast(new_p, weights)
-        else:
+        elif aggregation == "allreduce_shardmap":
+            agg_p = _psum_mean_bcast(new_p, weights[..., lanes], group)
+        elif aggregation == "int8_stochastic":
             agg_p = _int8_stochastic_mean_bcast(new_p, params_C, weights, u)
+        else:
+            agg_p = _int8_mean_bcast(new_p, params_C, weights, S, group)
         if any_p is not None:
             agg_p = _keep_old_params(agg_p, params_C, any_p)
         return agg_p, new_s, losses, mask
@@ -358,7 +475,7 @@ def build_round_step(value_and_grad: Callable, opt: Optimizer,
 def build_fleet_round(value_and_grad: Callable, opt: Optimizer,
                       n_clients: int, compress: bool, noise: Callable,
                       rows: int, guard=None, quorum=None,
-                      envelope: bool = False):
+                      envelope: bool = False, shard: bool = False):
     """One round for S members folded into the client axis:
     round_fn(params, opt_state, generators, weights, batches, mask=None,
     env=None) -> (params', opt_state', ys). params and opt_state leaves
@@ -392,9 +509,17 @@ def build_fleet_round(value_and_grad: Callable, opt: Optimizer,
     envelope=True is the Study's group round: the members may run
     different (b, V) plans padded into one (V_env, B_env) envelope
     (batches leaves (S*C, V_env, B_env, ...), padded entries 0), and env
-    holds their per-row envelope masks (envelope_local_steps_fn)."""
+    holds their per-row envelope masks (envelope_local_steps_fn).
+
+    shard=True shards the client axis over the default process group
+    ('allreduce_shardmap', no compression): params, opt_state, batches and
+    mask hold this rank's Cl = C / n lanes of each member (S*Cl rows),
+    weights stay whole, and ys are every rank's same values, read from the
+    gathered losses and masks (build_round_step)."""
     step = build_round_step(
-        value_and_grad, opt, "int8_stochastic" if compress else "allreduce",
+        value_and_grad, opt,
+        "int8_stochastic" if compress
+        else "allreduce_shardmap" if shard else "allreduce",
         guard, envelope)
     C = n_clients
 
@@ -435,7 +560,7 @@ def build_fleet_chunk(value_and_grad: Callable, opt: Optimizer,
                       n_clients: int,
                       compress: bool, batch_from: Optional[Callable],
                       noise: Callable, rows: int, guard=None, quorum=None,
-                      envelope: bool = False):
+                      envelope: bool = False, shard: bool = False):
     """A chunk of rounds of `build_fleet_round` for S members (fleet runs;
     S = 1 for one run) with no host synchronisation inside:
     chunk_step(params, opt_state, generators, weights, data, idx,
@@ -452,9 +577,10 @@ def build_fleet_chunk(value_and_grad: Callable, opt: Optimizer,
 
     weights is one (C,) vector for every round, or (R, S, C): one row of
     raw sizes a round and member, the cohort form of sampled participation
-    (n_clients = K lanes, which change owners every round)."""
+    (n_clients = K lanes, which change owners every round). shard: this
+    rank's lanes only (build_fleet_round), idx and mask (R, S*Cl, ...)."""
     round_fn = build_fleet_round(value_and_grad, opt, n_clients, compress,
-                                 noise, rows, guard, quorum, envelope)
+                                 noise, rows, guard, quorum, envelope, shard)
 
     def chunk_step(params, opt_state, generators, weights, data: Dict, idx,
                    mask=None, env=None):

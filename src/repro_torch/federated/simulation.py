@@ -115,6 +115,7 @@ from repro_torch.federated.faults import (DivergenceError, FaultModel,
 from repro_torch.federated.server import aggregate_updates
 from repro_torch.kernels.quantize.ref import stochastic_noise
 from repro_torch.optim.api import Optimizer
+from repro_torch.sharding import collectives
 from repro_torch.utils.tree import leaves, structure, tree_bytes, tree_map
 
 # The backends: three synchronous ones and the event queue.
@@ -337,12 +338,25 @@ class Simulator:
     scenario runs on 'uniform' (the cohort draws live on the scenario
     stream), and a quorum resolves against K.
 
-    `shard_clients=True` is the reference's client-axis sharding over all
-    devices: 'scan' only, no compression, lanes dividing evenly over the
-    devices. With one device (the CPU, or one visible CUDA card) the port
-    runs the unsharded step, which is what the reference's mesh of one
-    device computes; more than one visible card raises
-    NotImplementedError (ROADMAP.md, queue 1).
+    `shard_clients=True` is the reference's client-axis sharding: 'scan'
+    only, no compression, the lanes dividing evenly over the devices. The
+    port runs one process a device (`torchrun --nproc-per-node N`), and
+    the ranks of the caller's default torch.distributed group are the
+    client axis (sharding/collectives.py): rank r holds lanes [r C/n, (r+1)
+    C/n) of each member, its local steps run on them alone, and FedAvg is
+    each rank's partial sum plus one all_reduce
+    (mesh_rounds.build_round_step's 'allreduce_shardmap'; a group of one
+    rank takes that path too, as the reference's one-device mesh does).
+    Every rank runs the same host loop (plan, cohorts, masks, the float64
+    clock, the records), draws every lane's batches as the unsharded run
+    does and uploads only its own lanes'; every rank returns the same
+    records and bit-equal params. A SimState keeps all C lanes, as the
+    reference's global arrays do (the params from the rank's first lane,
+    every lane of a member holding the global model between rounds; the
+    optimizer state gathered), so checkpoints and run_round work as
+    unsharded. Without a group one device runs the unsharded step, and
+    more than one visible card raises ValueError: a sharded run needs one
+    process a card and never falls back to one card.
     """
 
     def __init__(
@@ -482,6 +496,7 @@ class Simulator:
                 "(cohort=K) — the dense backends stack every client's "
                 "batches, which is exactly what the pool exists to avoid")
         self.shard_clients = bool(shard_clients)
+        self._shard = False
         if shard_clients:
             if backend != "scan":
                 raise ValueError(
@@ -490,18 +505,29 @@ class Simulator:
                 raise ValueError(
                     "shard_clients with compress_updates is unsupported: "
                     "the int8 quantizer uses its own aggregation path")
-            n_dev = (torch.cuda.device_count() if self.device.type == "cuda"
-                     else 1)
+            grouped = collectives.initialized()
+            n_dev = (collectives.world() if grouped
+                     else torch.cuda.device_count()
+                     if self.device.type == "cuda" else 1)
             if self._lanes % n_dev:
                 raise ValueError(
                     f"client axis ({self._lanes} lanes) must divide evenly "
                     f"over the {n_dev} available devices")
-            if n_dev > 1:
-                raise NotImplementedError(
-                    f"shard_clients over {n_dev} CUDA devices (a multi-GPU "
-                    "all-reduce of the FedAvg sum) is not ported: ROADMAP.md, "
-                    "queue 1, item 18. On one device the unsharded step is "
-                    "the sharded one's result.")
+            if n_dev > 1 and not grouped:
+                raise ValueError(
+                    f"shard_clients sees {n_dev} CUDA devices and no "
+                    "torch.distributed process group: launch one process a "
+                    f"card (torchrun --nproc-per-node {n_dev} ...) and "
+                    "initialise the default group in each; its ranks share "
+                    "the client axis. A sharded run does not fall back to "
+                    "one card.")
+            self._shard = grouped
+            if grouped:
+                self.device = collectives.device_for_rank(self.device)
+        # This rank's lanes of the client axis (all of them unsharded).
+        self._lane_slice = (collectives.lane_slice(self._lanes)
+                            if self._shard else slice(0, self._lanes))
+        self._lanes_local = self._lane_slice.stop - self._lane_slice.start
         self._init_params = tree_map(
             lambda x: torch.as_tensor(x, dtype=torch.float32,
                                       device=self.device), init_params)
@@ -604,7 +630,7 @@ class Simulator:
             self._round_fn = mesh_rounds.build_fleet_round(
                 self.value_and_grad, opt, self._lanes,
                 fed.compress_updates, noise, self._rows, guard=self._guard,
-                quorum=self._quorum_arg())
+                quorum=self._quorum_arg(), shard=self._shard)
         if backend == "scan":
             self._chunk_fn = self.build_chunk()
 
@@ -642,7 +668,7 @@ class Simulator:
             self.value_and_grad, self.opt, self._lanes,
             self.fed.compress_updates, self._batch_from, self.noise,
             self._rows, guard=self._guard, quorum=self._quorum_arg(),
-            envelope=envelope)
+            envelope=envelope, shard=self._shard)
 
     # -- state construction -------------------------------------------------
     def init(self, seed: Optional[int] = None) -> SimState:
@@ -756,6 +782,22 @@ class Simulator:
         return dataclasses.replace(
             state, params_C=on(state.params_C), opt_C=on(state.opt_C),
             async_c=None if state.async_c is None else on(state.async_c))
+
+    def _to_lanes(self, tree):
+        """This rank's lanes of a (C, ...) tree (views; all of them
+        unsharded)."""
+        return tree_map(lambda x: x[self._lane_slice], tree)
+
+    def _from_lanes(self, params_l, opt_l) -> tuple:
+        """A member's (C, ...) params and optimizer state from this rank's
+        lanes: the params from its first lane (every lane of a member holds
+        the global model between rounds, bit-equal across the ranks), the
+        optimizer state gathered from every rank."""
+        if not self._shard:
+            return params_l, opt_l
+        C = self._lanes
+        return (tree_map(lambda x: x[:1].expand(C, *x.shape[1:]), params_l),
+                tree_map(collectives.gather_rows, opt_l))
 
     def _generator(self, state: SimState) -> torch.Generator:
         """The run's noise generator on this simulator's device, at the
@@ -1093,7 +1135,8 @@ class Simulator:
         divergence (run() of one member, with the fault layer's
         divergence_guard) checks each chunk's losses and raises
         DivergenceError carrying the state before the chunk."""
-        C = self._lanes
+        # This rank's lanes of each member (all C unsharded).
+        C, lanes = self._lanes_local, self._lane_slice
         S = len(states)
         sims = list(sims) if sims is not None else [self] * S
         chunk_fn = self._chunk_fn if chunk_fn is None else chunk_fn
@@ -1103,9 +1146,9 @@ class Simulator:
         mats = [sim._materialize(st) for sim, st in zip(sims, states)]
         gens = [sim._generator(st) for sim, st in zip(sims, states)]
         params = tree_map(lambda *xs: _cat_members(xs),
-                          *[st.params_C for st in states])
+                          *[self._to_lanes(st.params_C) for st in states])
         opt_state = tree_map(lambda *xs: _cat_members(xs),
-                             *[st.opt_C for st in states])
+                             *[self._to_lanes(st.opt_C) for st in states])
         weights = self._weights if self.scenario is None else self._sizes
         active = list(range(S))  # the members in the stack, in its order
         finals: List[Optional[tuple]] = [None] * S
@@ -1124,8 +1167,8 @@ class Simulator:
                    if max_sim_time else None for s in active]
             drawn = [sims[s]._chunk_inputs(*mats[s], n, envelope)
                      for s in active]
-            xs = tree_map(lambda *a: np.concatenate(a, axis=1),
-                          *[d[0] for d in drawn])
+            xs = tree_map(lambda *a: np.concatenate(
+                [x[:, lanes] for x in a], axis=1), *[d[0] for d in drawn])
             if self._data_dev is not None:
                 data, idx = self._data_dev, _upload(xs, self.device)
             else:
@@ -1134,7 +1177,7 @@ class Simulator:
             mask = None
             if self.scenario is not None:
                 mask = torch.from_numpy(np.concatenate(
-                    [d[1] for d in drawn], axis=1)).to(self.device)
+                    [d[1][:, lanes] for d in drawn], axis=1)).to(self.device)
             if self._sampled:
                 # (n, S, K): one row of each member's cohort sizes a round.
                 weights = torch.from_numpy(np.stack(
@@ -1164,9 +1207,10 @@ class Simulator:
             if guard_on:
                 checked = self._raise_if_diverged(histories[0], checked, snap,
                                                   finites)
-                snap = self._state_at(states[0], params, opt_state, gens[0],
-                                      mats[0], r0 + len(histories[0]),
-                                      times[0])
+                snap = self._state_at(states[0],
+                                      *self._from_lanes(params, opt_state),
+                                      gens[0], mats[0],
+                                      r0 + len(histories[0]), times[0])
             if evaluate is not None and (done % eval_every == 0
                                          or done == max_rounds):
                 evs = evaluate(tree_map(
@@ -1199,8 +1243,8 @@ class Simulator:
         for i, s in enumerate(active):
             finals[s] = tuple(tree_map(lambda x: _member(x, C, i), t)
                               for t in (params, opt_state))
-        out = [sims[s]._state_at(st, *finals[s], gens[s], mats[s],
-                                 r0 + len(histories[s]), times[s])
+        out = [sims[s]._state_at(st, *self._from_lanes(*finals[s]), gens[s],
+                                 mats[s], r0 + len(histories[s]), times[s])
                for s, st in enumerate(states)]
         return out, histories
 
@@ -1275,12 +1319,12 @@ class Simulator:
         path's step) on one upload of the round's host batches: every
         client's, or a sampled round's cohort's (lane k from client
         cohort[k], with that client's size)."""
-        V = self.fed.local_rounds
-        batches = tree_map(lambda x: _upload(x, self.device),
+        V, lanes = self.fed.local_rounds, self._lane_slice
+        batches = tree_map(lambda x: _upload(x[lanes], self.device),
                            stack_client_batches(iters, V) if cohort is None
                            else stack_cohort_batches(iters, cohort, V))
         mask = (None if real is None else torch.from_numpy(
-            np.asarray(real.mask, np.float32)).to(self.device))
+            np.asarray(real.mask, np.float32)[lanes]).to(self.device))
         if real is None:
             weights = self._weights
         elif cohort is None:
@@ -1288,8 +1332,10 @@ class Simulator:
         else:
             weights = torch.from_numpy(
                 self._sizes_host[cohort][None]).to(self.device)
-        params_C, opt_C, ys = self._round_fn(params_C, opt_C, [gen], weights,
-                                             batches, mask)
+        params_C, opt_C, ys = self._round_fn(
+            self._to_lanes(params_C), self._to_lanes(opt_C), [gen], weights,
+            batches, mask)
+        params_C, opt_C = self._from_lanes(params_C, opt_C)
         out = {"train_loss": ys["loss"][0]}  # a device scalar
         if real is not None:
             if self._faults is None:
@@ -2055,15 +2101,18 @@ def save_state(path: str, state: SimState) -> None:
     versioned envelope with the state's shape signature, written
     crash-safely (`_atomic_pickle`). `load_state` + `Simulator.run`
     continues the run bit for bit, on the kind of device the state was
-    made on (its noise generator's state is that device's)."""
+    made on (its noise generator's state is that device's). Under a
+    torch.distributed group (a sharded run, whose ranks hold the same
+    state) rank 0 alone writes and every rank waits until the file is
+    there (collectives.on_rank0); `load_state` then runs on every rank."""
     host = dataclasses.replace(
         state, params_C=_host_copy(state.params_C),
         opt_C=_host_copy(state.opt_C), rng=_host_copy(state.rng),
         async_c=(None if state.async_c is None
                  else _host_copy(state.async_c)))
-    _atomic_pickle(path, {"__repro_simstate__": _STATE_VERSION,
-                          "signature": _state_signature(host),
-                          "state": host})
+    collectives.on_rank0(lambda: _atomic_pickle(
+        path, {"__repro_simstate__": _STATE_VERSION,
+               "signature": _state_signature(host), "state": host}))
 
 
 def load_state(path: str, like: Optional[SimState] = None) -> SimState:

@@ -76,6 +76,7 @@ from repro_torch.federated.simulation import (
     _atomic_pickle,
     _validate_run_args,
 )
+from repro_torch.sharding import collectives
 from repro_torch.utils.tree import leaves, tree_map
 
 # The member contract a padded member's first round holds against its
@@ -139,7 +140,7 @@ def _run_group(members: List[_Member], max_rounds: int, eval_every: int,
     else:
         V_env = max(m.sim.fed.local_rounds for m in members)
         B_env = max(m.sim.fed.batch_size for m in members)
-    C = rep._lanes
+    C = rep._lanes_local  # this rank's lanes of each member when sharded
     envs = [_member_env(m.sim, V_env, B_env) for m in members]
     env = {k: torch.as_tensor(np.stack([e[k] for e in envs]),
                               device=rep.device).repeat_interleave(C, dim=0)
@@ -194,7 +195,8 @@ def _save_member(path: str, label: str, seed: int,
     payload = {"__repro_study_member__": _MEMBER_CKPT_VERSION,
                "label": label, "seed": int(seed), "state": st,
                "result": res}
-    _atomic_pickle(path, payload)
+    # A sharded study's ranks hold the same member: rank 0 writes it once.
+    collectives.on_rank0(lambda: _atomic_pickle(path, payload))
 
 
 def _load_member(path: str, label: str, seed: int, device,

@@ -41,9 +41,11 @@ placeholders (repro/launch/dryrun.py):
   from the specs; `temp_bytes` and `peak_bytes` are None (eager PyTorch
   has no compile-time memory analysis).
 - the HLO collective parse -> `utils/hlo.fedavg_collectives`, the FedAvg
-  sync of a train pair from its spec tree (no HLO exists to parse);
-  serve pairs list none (launch/postprocess.py adds the analytic in-loop
-  tensor-parallel traffic to every pair).
+  sync of a train pair from its spec tree (no HLO exists to parse), for
+  `--aggregation` allreduce_shardmap (the default: the sharded
+  simulator's partial sums and one all-reduce), int8_shardmap or
+  allreduce; serve pairs list none (launch/postprocess.py adds the
+  analytic in-loop tensor-parallel traffic to every pair).
 
 A failing pair makes the run exit nonzero.
 """
@@ -78,8 +80,8 @@ from repro_torch.sharding.specs import (batch_spec, cache_specs, param_specs,
                                         sharded_bytes)
 from repro_torch.utils import flops as fl
 from repro_torch.utils.analytic import analytic_costs, analytic_flops_as_run
-from repro_torch.utils.hlo import (CollectiveOp, collective_summary,
-                                   fedavg_collectives)
+from repro_torch.utils.hlo import (CROSS_RANK_AGGREGATIONS, CollectiveOp,
+                                   collective_summary, fedavg_collectives)
 from repro_torch.utils.tree import leaves, tree_map
 
 DEFAULT_V = 4  # baseline local rounds per sync (DEFL hillclimbs this)
@@ -172,7 +174,8 @@ def _batch_bytes(tree, mesh: Mesh, axes: tuple) -> int:
 
 
 def lower_train(cfg: ModelConfig, shape: InputShape, mesh: Mesh,
-                mesh_cfg: MeshConfig, V: int = DEFAULT_V) -> Lowered:
+                mesh_cfg: MeshConfig, V: int = DEFAULT_V,
+                aggregation: str = CROSS_RANK_AGGREGATIONS[0]) -> Lowered:
     C = mesh_cfg.n_clients
     inputs = train_input_specs(cfg, shape, mesh_cfg, V)
     params = _abstract_params(cfg)
@@ -197,7 +200,8 @@ def lower_train(cfg: ModelConfig, shape: InputShape, mesh: Mesh,
     return Lowered(
         flops_global=flops * V * C, bytes_global=nbytes * V * C,
         argument_bytes=arg, output_bytes=out,
-        collectives=fedavg_collectives(params_C, pspecs, mesh, axes),
+        collectives=fedavg_collectives(params_C, pspecs, mesh, axes,
+                                       aggregation),
         method=(f"one client's loss_fn + backward at its (b, S) = "
                 f"{tuple(step['tokens'].shape[:2])}, x V={V} x C={C}; no "
                 f"remat (forward + 2x backward)"))
@@ -246,7 +250,9 @@ def lower_decode(cfg: ModelConfig, shape: InputShape, mesh: Mesh,
 
 def lower_pair(arch: str, shape_name: str, mesh: Mesh, mesh_cfg: MeshConfig,
                V: int = DEFAULT_V, remat: bool = True, capacity: float = 0.0,
-               dispatch: str = "") -> Tuple[Lowered, ModelConfig]:
+               dispatch: str = "",
+               aggregation: str = CROSS_RANK_AGGREGATIONS[0],
+               ) -> Tuple[Lowered, ModelConfig]:
     """One fake run of the pair's step (the reference's lower + compile).
     Returns (Lowered, the config it ran)."""
     cfg = get_config(arch)
@@ -261,7 +267,8 @@ def lower_pair(arch: str, shape_name: str, mesh: Mesh, mesh_cfg: MeshConfig,
         cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, dispatch=dispatch))
     with FakeTensorMode():
         if shape.kind == "train":
-            return lower_train(cfg, shape, mesh, mesh_cfg, V), cfg
+            return lower_train(cfg, shape, mesh, mesh_cfg, V,
+                               aggregation), cfg
         if shape.kind == "prefill":
             return lower_prefill(cfg, shape, mesh, mesh_cfg), cfg
         return lower_decode(cfg, shape, mesh, mesh_cfg), cfg
@@ -305,7 +312,8 @@ def analyse(lowered: Lowered, cfg: ModelConfig, shape: InputShape,
 
 def run_pair(arch: str, shape_name: str, mesh_name: str, out_dir: str,
              V: int = DEFAULT_V, tag: str = "", remat: bool = True, capacity: float = 0.0,
-             dispatch: str = "", mesh: Optional[Mesh] = None) -> Dict:
+             dispatch: str = "", mesh: Optional[Mesh] = None,
+             aggregation: str = CROSS_RANK_AGGREGATIONS[0]) -> Dict:
     """One pair's record (written to `out_dir` unless it is empty). `mesh`
     replaces the production mesh named by `mesh_name` (whose MeshConfig
     still sets the client count)."""
@@ -313,14 +321,15 @@ def run_pair(arch: str, shape_name: str, mesh_name: str, out_dir: str,
     if mesh is None:
         mesh = make_production_mesh(multi_pod=mesh_cfg.multi_pod)
     rec: Dict = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
-                 "mesh_shape": dict(mesh.shape), "V": V, "remat": remat,
+                 "mesh_shape": dict(mesh.shape), "V": V,
+                 "aggregation": aggregation, "remat": remat,
                  "capacity": capacity, "dispatch": dispatch, "ok": False}
     t0 = time.time()
     try:
         shape = INPUT_SHAPES[shape_name]
         lowered, cfg = lower_pair(arch, shape_name, mesh, mesh_cfg, V,
                                   remat=remat, capacity=capacity,
-                                  dispatch=dispatch)
+                                  dispatch=dispatch, aggregation=aggregation)
         rec["lower_seconds"] = time.time() - t0
         rec.update(analyse(lowered, cfg, shape, mesh, mesh_cfg, V))
         rec["ok"] = True
@@ -366,6 +375,9 @@ def main(argv=None) -> int:
                     choices=["single", "multi", "both"])
     ap.add_argument("--out", default="experiments/dryrun_torch")
     ap.add_argument("--V", type=int, default=DEFAULT_V)
+    ap.add_argument("--aggregation", default=CROSS_RANK_AGGREGATIONS[0],
+                    choices=CROSS_RANK_AGGREGATIONS,
+                    help="the FedAvg sync a train pair plans")
     ap.add_argument("--tag", default="")
     ap.add_argument("--no-remat", action="store_true")
     ap.add_argument("--capacity", type=float, default=0.0)
@@ -383,7 +395,8 @@ def main(argv=None) -> int:
     pairs = [(arch, shape_name, mesh_name) for mesh_name in meshes
              for arch in archs for shape_name in shapes]
     kw = dict(V=args.V, tag=args.tag, remat=not args.no_remat,
-              capacity=args.capacity, dispatch=args.dispatch)
+              capacity=args.capacity, dispatch=args.dispatch,
+              aggregation=args.aggregation)
     failures = 0
     for rec in _run_pairs(pairs, args.out, args.jobs, kw):
         arch, shape_name, mesh_name = rec["arch"], rec["shape"], rec["mesh"]

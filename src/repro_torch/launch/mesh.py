@@ -4,8 +4,8 @@ The reference builds `jax.make_mesh` over 256 or 512 placeholder CPU
 devices; its sharding rules read only the mesh's `.shape`, an ordered
 {axis: size}. A `Mesh` here is that shape and nothing else: building
 one touches no device, starts no process group and initialises no
-CUDA (a `torch.distributed` DeviceMesh waits for multi-card runs,
-ROADMAP queue 1 item 18).
+CUDA. Runs that do cross devices, the sharded FL client axis, are one
+process a card in a torch.distributed group (sharding/collectives.py).
 """
 from __future__ import annotations
 

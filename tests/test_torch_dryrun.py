@@ -164,6 +164,58 @@ def test_fedavg_plan():
                                   mc.client_axes) == []
 
 
+# The int8_shardmap and allreduce plans of test_fedavg_plan's tree, worked
+# out by hand. Per device the 'w' leaf (C, 64, 32) holds (C/g, 4, 32) (the
+# 'model' axis of 16 splits 64) and 'b' (C, 5) holds (C/g, 5); C = g = 16
+# clients on the single mesh, 32 on the multi-pod one.
+#   int8_shardmap: per leaf an s8 all-gather of every client's codes, (C,
+#     prod(shard[1:])) at 1 B, and an f32 all-gather of their scales (C, 1):
+#     b: 16 x 5 = 80 B and 16 x 4 = 64 B; w: 16 x 128 = 2,048 B and 64 B
+#     (multi: 160, 128, 4,096, 128 B);
+#   allreduce: per leaf an f32 all-gather of every client's rows (C,
+#     *shard[1:]): b (16, 5) = 320 B, w (16, 4, 32) = 8,192 B (multi: 640
+#     and 16,384 B).
+# An all-gather's wire bytes are its output's x (g - 1) / g.
+_PLANS = {
+    "int8_shardmap": {
+        16: [("all-gather", "s8", (16, 5), 80),
+             ("all-gather", "f32", (16, 1), 64),
+             ("all-gather", "s8", (16, 128), 2048),
+             ("all-gather", "f32", (16, 1), 64)],
+        32: [("all-gather", "s8", (32, 5), 160),
+             ("all-gather", "f32", (32, 1), 128),
+             ("all-gather", "s8", (32, 128), 4096),
+             ("all-gather", "f32", (32, 1), 128)]},
+    "allreduce": {
+        16: [("all-gather", "f32", (16, 5), 320),
+             ("all-gather", "f32", (16, 4, 32), 8192)],
+        32: [("all-gather", "f32", (32, 5), 640),
+             ("all-gather", "f32", (32, 4, 32), 16384)]},
+}
+
+
+@pytest.mark.parametrize("aggregation", sorted(_PLANS))
+def test_fedavg_plan_of_the_other_aggregations(aggregation):
+    leaf = specs_inputs.TensorSpec
+    for multi, g in ((False, 16), (True, 32)):
+        mc = MeshConfig(multi_pod=multi)
+        mesh = make_production_mesh(multi_pod=multi)
+        C = mc.n_clients
+        tree = {"w": leaf((C, 64, 32), torch.float32),
+                "b": leaf((C, 5), torch.bfloat16)}
+        pspecs = {"w": (mc.client_axes if multi else "data", "model", None),
+                  "b": (mc.client_axes if multi else "data", None)}
+        ops = hlo.fedavg_collectives(tree, pspecs, mesh, mc.client_axes,
+                                     aggregation)
+        assert [(o.kind, o.dtype, o.shape, o.bytes) for o in ops] == \
+            _PLANS[aggregation][g]
+        assert all(o.group_size == g for o in ops)
+        assert [o.wire_bytes for o in ops] == [
+            o.bytes * (g - 1) / g for o in ops]
+    with pytest.raises(ValueError, match="unknown aggregation"):
+        hlo.fedavg_collectives(tree, pspecs, mesh, mc.client_axes, "int8")
+
+
 def _argument_bytes_on_one_device(cfg, shape):
     """qwen2-0.5b decode_32k whole on one device: float32 params, the bf16
     KV cache (2 leaves of (G, sg, B, L, KV, hd)), int32 tokens."""
@@ -184,6 +236,7 @@ def test_one_pair_end_to_end_then_postprocess_and_roofline(tmp_path):
     fn = tmp_path / "qwen2-0.5b--decode_32k--single.json"
     rec = json.loads(fn.read_text())
     assert rec["ok"], rec.get("error")
+    assert rec["aggregation"] == "allreduce_shardmap"
     for key in ("ok", "arch", "shape", "mesh", "V", "remat", "capacity",
                 "terms_seconds", "dominant", "model_flops",
                 "flops_per_device", "bytes_per_device", "memory",

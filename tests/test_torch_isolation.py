@@ -86,6 +86,8 @@ def test_importing_every_module_leaves_jax_and_repro_out():
             "repro_torch.sharding", "repro_torch.sharding.specs",
             "repro_torch.utils.analytic", "repro_torch.utils.flops",
             "repro_torch.utils.hlo"} <= set(MODULES)
+    # The client axis across ranks: torch.distributed, nothing of JAX.
+    assert "repro_torch.sharding.collectives" in MODULES
 
 
 def test_checkpoint_io_needs_no_msgpack_package():

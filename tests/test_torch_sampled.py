@@ -883,7 +883,8 @@ def test_study_sampled_arm_groups_and_table():
 
 @pytest.mark.parametrize("K", [None, 4])
 def test_shard_clients_is_the_unsharded_step(K):
-    """On one device shard_clients runs the unsharded step: bit for bit
+    """On one device without a process group shard_clients runs the
+    unsharded step: bit for bit
     the port's own run without it, and within the member contract of the
     reference's shard_map run on its one CPU device."""
     kw = dict(M=6, K=K)
@@ -911,13 +912,13 @@ def test_shard_clients_checks(monkeypatch):
         _quad("scan", "dropout", shard=True, compress=True)
     spec = t_exp.get("mnist_sampled").replace(shard_clients=True)
     assert spec.build(device="cpu").shard_clients
-    # More than one visible card: the multi-GPU all-reduce is not ported;
-    # lanes that do not divide over the cards raise first, as in the
-    # reference.
+    # More than one visible card and no process group: a sharded run needs
+    # one process a card (torchrun) and never runs quietly on one; lanes
+    # that do not divide over the cards raise first, as in the reference.
     monkeypatch.setattr(simulation, "resolve_device",
                         lambda d=None: torch.device("cuda"))
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="queue 1, item 18"):
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         _quad("scan", "dropout", shard=True, K=4)
     with pytest.raises(ValueError, match="divide evenly"):
         _quad("scan", "dropout", shard=True, K=3)
