@@ -72,6 +72,7 @@ from repro_torch.federated import compression
 from repro_torch.kernels.fold_matmul.ops import fold_matmul
 from repro_torch.optim.api import Optimizer, apply_updates
 from repro_torch.sharding import collectives
+from repro_torch.utils import spans
 from repro_torch.utils.tree import leaves, tree_map, unflatten
 
 AGGREGATIONS = ("allreduce", "allreduce_shardmap", "int8_shardmap",
@@ -442,32 +443,38 @@ def build_round_step(value_and_grad: Callable, opt: Optimizer,
 
     def round_step(params_C, opt_C, batches, weights, u=None, mask=None,
                    env=None):
-        new_p, new_s, losses = local(params_C, opt_C, batches, env)
-        if guard is not None:
-            new_p, mask = _guard_clients(guard, new_p, params_C, losses, mask)
-        if mask is not None:
-            new_p = _select_participating_state(new_p, params_C, mask)
-            new_s = _select_participating_state(new_s, opt_C, mask)
-            losses = torch.where(mask > 0, losses, 0.0)
-        lanes, S = slice(None), None
-        if sharded:
-            lanes = collectives.lane_slice(weights.shape[-1], group)
-            S = losses.shape[0] // (lanes.stop - lanes.start)
-            losses, mask = _gather_round(losses, mask, S, group)
-        any_p = None
-        if mask is not None:
-            weights, any_p = _participation_weights(weights, mask)
-        if aggregation == "allreduce":
-            agg_p = _weighted_mean_bcast(new_p, weights)
-        elif aggregation == "allreduce_shardmap":
-            agg_p = _psum_mean_bcast(new_p, weights[..., lanes], group)
-        elif aggregation == "int8_stochastic":
-            agg_p = _int8_stochastic_mean_bcast(new_p, params_C, weights, u)
-        else:
-            agg_p = _int8_mean_bcast(new_p, params_C, weights, S, group)
-        if any_p is not None:
-            agg_p = _keep_old_params(agg_p, params_C, any_p)
-        return agg_p, new_s, losses, mask
+        # The paper's work (the local steps) and talk (everything after
+        # them) as device spans, recorded only under a profiler.
+        with spans.device_span("fl.round.local", weights):
+            new_p, new_s, losses = local(params_C, opt_C, batches, env)
+        with spans.device_span("fl.round.aggregate", weights):
+            if guard is not None:
+                new_p, mask = _guard_clients(guard, new_p, params_C, losses,
+                                             mask)
+            if mask is not None:
+                new_p = _select_participating_state(new_p, params_C, mask)
+                new_s = _select_participating_state(new_s, opt_C, mask)
+                losses = torch.where(mask > 0, losses, 0.0)
+            lanes, S = slice(None), None
+            if sharded:
+                lanes = collectives.lane_slice(weights.shape[-1], group)
+                S = losses.shape[0] // (lanes.stop - lanes.start)
+                losses, mask = _gather_round(losses, mask, S, group)
+            any_p = None
+            if mask is not None:
+                weights, any_p = _participation_weights(weights, mask)
+            if aggregation == "allreduce":
+                agg_p = _weighted_mean_bcast(new_p, weights)
+            elif aggregation == "allreduce_shardmap":
+                agg_p = _psum_mean_bcast(new_p, weights[..., lanes], group)
+            elif aggregation == "int8_stochastic":
+                agg_p = _int8_stochastic_mean_bcast(new_p, params_C, weights,
+                                                    u)
+            else:
+                agg_p = _int8_mean_bcast(new_p, params_C, weights, S, group)
+            if any_p is not None:
+                agg_p = _keep_old_params(agg_p, params_C, any_p)
+            return agg_p, new_s, losses, mask
 
     return round_step
 
@@ -527,8 +534,11 @@ def build_fleet_round(value_and_grad: Callable, opt: Optimizer,
                  env=None):
         u = None
         if compress:
-            us = [noise(g, (C, rows, compression.ROW)) for g in generators]
-            u = us[0] if len(us) == 1 else torch.cat(us)
+            # The quantizer noise is part of the round's talk.
+            with spans.device_span("fl.round.aggregate", weights):
+                us = [noise(g, (C, rows, compression.ROW))
+                      for g in generators]
+                u = us[0] if len(us) == 1 else torch.cat(us)
         new_p, new_s, per_client, m_eff = step(
             params, opt_state, batches, weights, u, mask, env)
         if mask is None:

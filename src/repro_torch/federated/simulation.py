@@ -116,6 +116,7 @@ from repro_torch.federated.server import aggregate_updates
 from repro_torch.kernels.quantize.ref import stochastic_noise
 from repro_torch.optim.api import Optimizer
 from repro_torch.sharding import collectives
+from repro_torch.utils import spans
 from repro_torch.utils.tree import leaves, structure, tree_bytes, tree_map
 
 # The backends: three synchronous ones and the event queue.
@@ -1142,13 +1143,15 @@ class Simulator:
         chunk_fn = self._chunk_fn if chunk_fn is None else chunk_fn
         envelope = None if env is None else (env["v_mask"].shape[1],
                                              env["sample_mask"].shape[1])
-        states = [sim._placed(st) for sim, st in zip(sims, states)]
-        mats = [sim._materialize(st) for sim, st in zip(sims, states)]
-        gens = [sim._generator(st) for sim, st in zip(sims, states)]
-        params = tree_map(lambda *xs: _cat_members(xs),
-                          *[self._to_lanes(st.params_C) for st in states])
-        opt_state = tree_map(lambda *xs: _cat_members(xs),
-                             *[self._to_lanes(st.opt_C) for st in states])
+        spans.count("fl.drive.calls", 1)
+        with spans.span("fl.drive.enter"):
+            states = [sim._placed(st) for sim, st in zip(sims, states)]
+            mats = [sim._materialize(st) for sim, st in zip(sims, states)]
+            gens = [sim._generator(st) for sim, st in zip(sims, states)]
+            params = tree_map(lambda *xs: _cat_members(xs),
+                              *[self._to_lanes(st.params_C) for st in states])
+            opt_state = tree_map(lambda *xs: _cat_members(xs),
+                                 *[self._to_lanes(st.opt_C) for st in states])
         weights = self._weights if self.scenario is None else self._sizes
         active = list(range(S))  # the members in the stack, in its order
         finals: List[Optional[tuple]] = [None] * S
@@ -1162,90 +1165,112 @@ class Simulator:
         done = 0
         while done < max_rounds:
             n = min(R, max_rounds - done)
-            pre = [(sims[s]._snapshot_iters(mats[s][0]),
-                    None if mats[s][1] is None else mats[s][1].state())
-                   if max_sim_time else None for s in active]
-            drawn = [sims[s]._chunk_inputs(*mats[s], n, envelope)
-                     for s in active]
-            xs = tree_map(lambda *a: np.concatenate(
-                [x[:, lanes] for x in a], axis=1), *[d[0] for d in drawn])
-            if self._data_dev is not None:
-                data, idx = self._data_dev, _upload(xs, self.device)
-            else:
-                data, idx = tree_map(lambda a: _upload(a, self.device),
-                                     xs), None
-            mask = None
-            if self.scenario is not None:
-                mask = torch.from_numpy(np.concatenate(
-                    [d[1][:, lanes] for d in drawn], axis=1)).to(self.device)
-            if self._sampled:
-                # (n, S, K): one row of each member's cohort sizes a round.
-                weights = torch.from_numpy(np.stack(
-                    [d[3] for d in drawn], axis=1)).to(self.device)
-            params, opt_state, ys = chunk_fn(
-                params, opt_state, [gens[s] for s in active], weights,
-                data, idx, mask, env)
-            ys = {k: v.cpu().numpy() for k, v in ys.items()}
-            stopped = set()
-            for i, s in enumerate(active):
-                recs = sims[s]._chunk_records(
-                    {k: v[i] for k, v in ys.items()}, drawn[i][2], n,
-                    r0 + done, times[s])
-                if max_sim_time:
-                    for j, rec in enumerate(recs):
-                        if rec.sim_time >= max_sim_time:
-                            if j + 1 < n:
-                                sims[s]._rewind(mats[s], pre[i], j + 1)
-                            recs = recs[:j + 1]
-                            stopped.add(s)
-                            break
-                histories[s].extend(recs)
-                times[s] = histories[s][-1].sim_time
+            with spans.span("fl.drive.draws"):
+                pre = [(sims[s]._snapshot_iters(mats[s][0]),
+                        None if mats[s][1] is None else mats[s][1].state())
+                       if max_sim_time else None for s in active]
+                drawn = [sims[s]._chunk_inputs(*mats[s], n, envelope)
+                         for s in active]
+                xs = tree_map(lambda *a: np.concatenate(
+                    [x[:, lanes] for x in a], axis=1), *[d[0] for d in drawn])
+            with spans.span("fl.drive.upload"):
+                if self._data_dev is not None:
+                    data, idx = self._data_dev, _upload(xs, self.device)
+                else:
+                    data, idx = tree_map(lambda a: _upload(a, self.device),
+                                         xs), None
+                mask = None
+                if self.scenario is not None:
+                    mask = torch.from_numpy(np.concatenate(
+                        [d[1][:, lanes] for d in drawn],
+                        axis=1)).to(self.device)
+                if self._sampled:
+                    # (n, S, K): one row of each member's cohort sizes a
+                    # round.
+                    weights = torch.from_numpy(np.stack(
+                        [d[3] for d in drawn], axis=1)).to(self.device)
+                if spans.on():
+                    sent = ([idx] if idx is not None else leaves(data)) + [
+                        mask, weights if self._sampled else None]
+                    spans.count("fl.drive.h2d_bytes", sum(
+                        t.nbytes for t in sent if t is not None))
+            with spans.span("fl.drive.call"):
+                params, opt_state, ys = chunk_fn(
+                    params, opt_state, [gens[s] for s in active], weights,
+                    data, idx, mask, env)
+            with spans.span("fl.drive.fetch"):
+                ys = {k: v.cpu().numpy() for k, v in ys.items()}
+                spans.resolve()
+            spans.count("fl.drive.rounds", n)
+            with spans.span("fl.drive.records"):
+                stopped = set()
+                for i, s in enumerate(active):
+                    recs = sims[s]._chunk_records(
+                        {k: v[i] for k, v in ys.items()}, drawn[i][2], n,
+                        r0 + done, times[s])
+                    if max_sim_time:
+                        for j, rec in enumerate(recs):
+                            if rec.sim_time >= max_sim_time:
+                                if j + 1 < n:
+                                    sims[s]._rewind(mats[s], pre[i], j + 1)
+                                recs = recs[:j + 1]
+                                stopped.add(s)
+                                break
+                    histories[s].extend(recs)
+                    times[s] = histories[s][-1].sim_time
+                    if guard_on:
+                        finites.extend(ys["finite"][i][:len(recs)])
+                done += n
                 if guard_on:
-                    finites.extend(ys["finite"][i][:len(recs)])
-            done += n
-            if guard_on:
-                checked = self._raise_if_diverged(histories[0], checked, snap,
-                                                  finites)
-                snap = self._state_at(states[0],
-                                      *self._from_lanes(params, opt_state),
-                                      gens[0], mats[0],
-                                      r0 + len(histories[0]), times[0])
+                    checked = self._raise_if_diverged(
+                        histories[0], checked, snap, finites)
+                    snap = self._state_at(
+                        states[0], *self._from_lanes(params, opt_state),
+                        gens[0], mats[0], r0 + len(histories[0]), times[0])
             if evaluate is not None and (done % eval_every == 0
                                          or done == max_rounds):
-                evs = evaluate(tree_map(
-                    lambda x: x.reshape(-1, C, *x.shape[1:])[:, 0], params))
-                for i, s in enumerate(active):
-                    rec = histories[s][-1]
-                    # A member truncated inside the chunk has no eval here
-                    # (its run alone would not evaluate there either).
-                    if rec.round != r0 + done:
-                        continue
-                    rec.test_acc = float(evs[i].get("acc", np.nan))
-                    rec.test_loss = float(evs[i].get("loss", np.nan))
-                    if target_acc and rec.test_acc >= target_acc:
-                        stopped.add(s)
+                with spans.span("fl.drive.eval"):
+                    evs = evaluate(tree_map(
+                        lambda x: x.reshape(-1, C, *x.shape[1:])[:, 0],
+                        params))
+                    for i, s in enumerate(active):
+                        rec = histories[s][-1]
+                        # A member truncated inside the chunk has no eval
+                        # here (its run alone would not evaluate there
+                        # either).
+                        if rec.round != r0 + done:
+                            continue
+                        rec.test_acc = float(evs[i].get("acc", np.nan))
+                        rec.test_loss = float(evs[i].get("loss", np.nan))
+                        if target_acc and rec.test_acc >= target_acc:
+                            stopped.add(s)
             if len(stopped) == len(active):
                 break
             if stopped:
-                keep = [i for i, s in enumerate(active) if s not in stopped]
-                for i, s in enumerate(active):
-                    if s in stopped:
-                        finals[s] = tuple(
-                            tree_map(lambda x: _member(x, C, i).clone(), t)
-                            for t in (params, opt_state))
-                params, opt_state = (
-                    tree_map(lambda x: _members(x, C, keep), t)
-                    for t in (params, opt_state))
-                if env is not None:
-                    env = {k: _members(x, C, keep) for k, x in env.items()}
-                active = [active[i] for i in keep]
-        for i, s in enumerate(active):
-            finals[s] = tuple(tree_map(lambda x: _member(x, C, i), t)
-                              for t in (params, opt_state))
-        out = [sims[s]._state_at(st, *self._from_lanes(*finals[s]), gens[s],
-                                 mats[s], r0 + len(histories[s]), times[s])
-               for s, st in enumerate(states)]
+                with spans.span("fl.drive.records"):
+                    keep = [i for i, s in enumerate(active)
+                            if s not in stopped]
+                    for i, s in enumerate(active):
+                        if s in stopped:
+                            finals[s] = tuple(
+                                tree_map(lambda x: _member(x, C, i).clone(),
+                                         t)
+                                for t in (params, opt_state))
+                    params, opt_state = (
+                        tree_map(lambda x: _members(x, C, keep), t)
+                        for t in (params, opt_state))
+                    if env is not None:
+                        env = {k: _members(x, C, keep)
+                               for k, x in env.items()}
+                    active = [active[i] for i in keep]
+        with spans.span("fl.drive.exit"):
+            for i, s in enumerate(active):
+                finals[s] = tuple(tree_map(lambda x: _member(x, C, i), t)
+                                  for t in (params, opt_state))
+            out = [sims[s]._state_at(st, *self._from_lanes(*finals[s]),
+                                     gens[s], mats[s],
+                                     r0 + len(histories[s]), times[s])
+                   for s, st in enumerate(states)]
         return out, histories
 
     # -- per-round execution ('batched', 'loop'; run_round on all three) ---

@@ -77,6 +77,7 @@ from repro_torch.federated.simulation import (
     _validate_run_args,
 )
 from repro_torch.sharding import collectives
+from repro_torch.utils import spans
 from repro_torch.utils.tree import leaves, tree_map
 
 # The member contract a padded member's first round holds against its
@@ -135,23 +136,26 @@ def _run_group(members: List[_Member], max_rounds: int, eval_every: int,
     B_env) dims (the bit_check probe pads one member beyond its own
     shapes); by default they are the group's maxima."""
     rep = members[0].sim
-    if envelope is not None:
-        V_env, B_env = envelope
-    else:
-        V_env = max(m.sim.fed.local_rounds for m in members)
-        B_env = max(m.sim.fed.batch_size for m in members)
-    C = rep._lanes_local  # this rank's lanes of each member when sharded
-    envs = [_member_env(m.sim, V_env, B_env) for m in members]
-    env = {k: torch.as_tensor(np.stack([e[k] for e in envs]),
-                              device=rep.device).repeat_interleave(C, dim=0)
-           for k in envs[0]}
-    states = [m.state if m.state is not None else m.sim.init(m.seed)
-              for m in members]
-    evaluate = rep._eval_members if rep.eval_batch_fn is not None else None
+    with spans.span("fl.group.setup"):
+        if envelope is not None:
+            V_env, B_env = envelope
+        else:
+            V_env = max(m.sim.fed.local_rounds for m in members)
+            B_env = max(m.sim.fed.batch_size for m in members)
+        C = rep._lanes_local  # this rank's lanes of each member when sharded
+        envs = [_member_env(m.sim, V_env, B_env) for m in members]
+        env = {k: torch.as_tensor(np.stack([e[k] for e in envs]),
+                                  device=rep.device).repeat_interleave(
+                                      C, dim=0)
+               for k in envs[0]}
+        states = [m.state if m.state is not None else m.sim.init(m.seed)
+                  for m in members]
+        evaluate = (rep._eval_members if rep.eval_batch_fn is not None
+                    else None)
+        chunk_fn = rep.build_chunk(envelope=True)
     out, histories = rep._drive(
         states, max_rounds, eval_every, target_acc, max_sim_time, evaluate,
-        sims=[m.sim for m in members],
-        chunk_fn=rep.build_chunk(envelope=True), env=env)
+        sims=[m.sim for m in members], chunk_fn=chunk_fn, env=env)
     return [(st, SimResult(history=h, params=m.sim.params(st),
                            label=f"{m.label}[seed={m.seed}]", fed=m.sim.fed))
             for m, st, h in zip(members, out, histories)]
