@@ -2981,16 +2981,20 @@ def _compressed_arms(study):
 
 
 def _swapped_env_chunk(inner, C, a, b):
-    """The group chunk `inner` with the envelope masks of members a and b
-    swapped: a planted misalignment, member a running member b's (V, b)
-    masks and b running a's."""
+    """The group chunk `inner` with the device envelope masks of the
+    members at stack positions a and b swapped: a planted misalignment,
+    member a running member b's sample mask, b and V count, and b running
+    a's. The step schedule (host rows) stays the stack's."""
+    from repro_torch.federated import study as study_mod
+
     def chunk(params, opt_state, gens, weights, data, idx, mask=None,
               env=None):
         order = list(range(env["v_mask"].shape[0] // C))
         order[a], order[b] = order[b], order[a]
         rows = [r for m in order for r in range(m * C, (m + 1) * C)]
         return inner(params, opt_state, gens, weights, data, idx, mask,
-                     {k: v[rows] for k, v in env.items()})
+                     {k: v if k in study_mod._HOST_ENV else v[rows]
+                      for k, v in env.items()})
 
     return chunk
 
@@ -3069,8 +3073,10 @@ def phase_study_compressed(counters, card, study):
              for k, (label, seed) in enumerate(members)]
     rep = group[0].sim
     build = rep.build_chunk
+    stack = study_mod._stack_order(group)
     rep.build_chunk = lambda envelope=False: _swapped_env_chunk(
-        build(envelope=envelope), rep.fed.n_devices, a, b)
+        build(envelope=envelope), rep.fed.n_devices, stack.index(a),
+        stack.index(b))
     try:
         swapped = study_mod._run_group(group, 1, 1, None, None)
     finally:

@@ -10,9 +10,11 @@ major) where the reference vmaps its compiled chunk over a member axis;
 each member still averages only its own C clients.
 
 A Study group (federated/study.py) folds members with different (b, V)
-plans the same way, padded into the group's (V_env, B_env) envelope:
-per-row masks drop a padded step's writes and a padded sample's loss
-(envelope_local_steps_fn, build_fleet_chunk(envelope=True)).
+plans the same way, padded into the group's (V_env, B_env) envelope and
+stacked by V, largest first: local step v runs only on the lanes whose
+member still steps, a prefix of the stack, trimmed to their largest b,
+and a per-row mask drops a padded sample's loss (envelope_schedule,
+envelope_local_steps_fn, build_fleet_chunk(envelope=True)).
 
 Under a scenario the round is masked: a per-round (S*C,) participation
 mask renormalises each member's FedAvg weights over its participating
@@ -142,6 +144,23 @@ def local_steps_fn(value_and_grad: Callable, opt: Optimizer):
     return run
 
 
+def envelope_schedule(v_mask: np.ndarray, rows: np.ndarray):
+    """The envelope's local steps as host data: [(n_v, b_v)] for v <
+    V_env, from the host arrays of a group's env (no device read). v_mask
+    (N, V_env) bool marks each lane's own steps and rows (N,) the sample
+    rows its steps compute (its b, or B_env when the envelope is forced).
+    The lanes live at step v must be the prefix [:n_v] of the stack (the
+    Study stacks its members by V, largest first); b_v is their largest
+    rows, 0 where no lane steps."""
+    n = v_mask.sum(axis=0)
+    if not np.array_equal(v_mask, np.arange(len(rows))[:, None] < n):
+        raise ValueError("envelope lanes that step must be a prefix of the "
+                         "stack at every step: stack the members by V, "
+                         "largest first")
+    widest = np.maximum.accumulate(rows)
+    return [(int(k), int(widest[k - 1]) if k else 0) for k in n]
+
+
 def envelope_local_steps_fn(value_and_grad: Callable, opt: Optimizer):
     """`local_steps_fn` over a padded (V_env, B_env) shape envelope: the
     Study runs arms with different (b, V) plans as one folded fleet by
@@ -153,26 +172,60 @@ def envelope_local_steps_fn(value_and_grad: Callable, opt: Optimizer):
     sample_mask, n) differentiates the masked loss
     (models.cnn.cnn_loss_masked). env holds one row a client (N = S*C,
     each member's values repeated over its C clients):
-      v_mask      (N, V_env) 1.0 on the member's own local steps; a padded
-                  step still runs (the shapes are static), and torch.where
-                  drops its writes to params and optimizer state
+      v_mask      (N, V_env) host bool, True on the member's own local
+                  steps
+      rows        (N,) host int, the sample rows its steps compute
       sample_mask (N, B_env) 1.0 on the member's b samples
       n_samples   (N,) b, and v_count (N,) V, as float32
-    The loss fold adds 0 for a padded step and divides by the member's
-    own V (never by V_env)."""
+    Step v computes only the live lanes, the prefix [:n_v] of the stack,
+    on their first b_v rows (envelope_schedule): parameters, optimizer
+    state, batch, sample mask and n_samples are views of those rows, and
+    the step's result is written into the first n_v rows of the round's
+    output state, whose other rows keep their values bit for bit. The
+    output never aliases the input state, which the aggregation reads. A
+    group whose members share one plan steps every lane at B_env rows,
+    as a fleet does. The loss fold adds each live lane's step loss (a dead
+    step adds nothing) and divides by the member's own V (never by
+    V_env).
+
+    Counters (utils/spans, recorded only under a profiler), host
+    arithmetic over the schedule: fl.envelope.sample_steps, the sum of
+    n_v x b_v over the computed steps, and fl.envelope.full_sample_steps,
+    N x V_env x B_env, what the padded envelope holds."""
 
     def run(params, opt_state, batches, env):
-        total = 0.0
-        for v in range(env["v_mask"].shape[1]):
+        steps = envelope_schedule(env["v_mask"], env["rows"])
+        N = len(env["rows"])
+        spans.count("fl.envelope.sample_steps", sum(n * b for n, b in steps))
+        spans.count("fl.envelope.full_sample_steps",
+                    N * len(steps) * env["sample_mask"].shape[1])
+        inputs = {id(x) for x in leaves((params, opt_state))}
+
+        def put(out, new, n):
+            # The round's input is the aggregation's: write into a copy.
+            if id(out) in inputs:
+                out = out.clone(memory_format=torch.contiguous_format)
+            out[:n].copy_(new)
+            return out
+
+        total = env["v_count"].new_zeros(N)
+        for v, (n, b) in enumerate(steps):
+            if n == 0:
+                continue  # no lane steps
+            p, s = ((params, opt_state) if n == N else
+                    tree_map(lambda x: x[:n], (params, opt_state)))
             grads, loss = value_and_grad(
-                params, {k: b[:, v] for k, b in batches.items()},
-                env["sample_mask"], env["n_samples"])
-            updates, new_s = opt.update(grads, opt_state, params)
-            new_p = apply_updates(params, updates)
-            valid = env["v_mask"][:, v]
-            params = _select_participating_state(new_p, params, valid)
-            opt_state = _select_participating_state(new_s, opt_state, valid)
-            total = total + torch.where(valid > 0, loss, 0.0)
+                p, {k: x[:n, v, :b] for k, x in batches.items()},
+                env["sample_mask"][:n, :b], env["n_samples"][:n])
+            updates, new_s = opt.update(grads, s, p)
+            new_p = apply_updates(p, updates)
+            if n == N:
+                params, opt_state = new_p, new_s
+            else:
+                params, opt_state = tree_map(
+                    lambda o, x: put(o, x, n), (params, opt_state),
+                    (new_p, new_s))
+            total[:n] += loss
         return params, opt_state, total / env["v_count"]
 
     return run

@@ -1129,9 +1129,11 @@ class Simulator:
         The device call is `chunk_fn` (default
         this simulator's chunk); a group's is the envelope chunk of its
         first simulator, and `env` holds the members' envelope masks one
-        row a client (S*C rows; mesh_rounds.envelope_local_steps_fn): each
-        member's draws are zero-padded to its (V_env, B_env), and a
-        stopped member's rows leave the stack with its params.
+        row a client (S*C rows; mesh_rounds.envelope_local_steps_fn; the
+        step schedule's as host arrays): each member's draws are
+        zero-padded to its (V_env, B_env), and a stopped member's rows
+        leave the stack with its params, in the stack's order, so the
+        schedule the chunk derives from the host rows stays a prefix.
 
         divergence (run() of one member, with the fault layer's
         divergence_guard) checks each chunk's losses and raises
@@ -2300,6 +2302,7 @@ def _member(x: torch.Tensor, C: int, i: int) -> torch.Tensor:
     return x.reshape(-1, C, *x.shape[1:])[i]
 
 
-def _members(x: torch.Tensor, C: int, keep: List[int]) -> torch.Tensor:
-    """The (len(keep)*C, ...) rows of the members `keep` of a stack."""
+def _members(x, C: int, keep: List[int]):
+    """The (len(keep)*C, ...) rows of the members `keep` of a stack (a
+    tensor or a host array)."""
     return x.reshape(-1, C, *x.shape[1:])[keep].reshape(-1, *x.shape[1:])

@@ -28,10 +28,11 @@ the simulator's one driver (`Simulator._drive`, as `run_fleet`):
     arms with mixed (b, V) plans share one chunk through the **(V, b)
     envelope**: every member's batch indices are zero-padded to the
     group's (V_env, B_env) = (max V, max b), and per-row masks make the
-    padding inert (mesh_rounds.envelope_local_steps_fn: a padded step's
-    writes are dropped with torch.where, a padded sample adds an exact 0
-    through cnn.cnn_loss_masked, the loss divides by the member's own
-    b and V);
+    padding inert (mesh_rounds.envelope_local_steps_fn: the members are
+    stacked by V, largest first, so each local step runs only on the
+    lanes still stepping, a prefix of the stack, at their largest b; a
+    padded sample adds an exact 0 through cnn.cnn_loss_masked, the loss
+    divides by the member's own b and V);
   * each member keeps its own simulator: its plan, data iterators,
     scenario stream, quantizer-noise generator, per-client compute times
     and update bits, so its Eq. 8 clock and uplink bits are its run
@@ -114,16 +115,32 @@ class _Member:
     state: Optional[SimState] = None
 
 
-def _member_env(sim: Simulator, V_env: int, B_env: int) -> dict:
+def _member_env(sim: Simulator, V_env: int, B_env: int,
+                forced: bool = False) -> dict:
     """The member's (V, b)-envelope masks (host numpy), repeated over its
-    C client lanes when the group stacks them (one row a lane)."""
+    C client lanes when the group stacks them (one row a lane). Its steps
+    compute its b rows, or B_env under a forced envelope (the bit_check
+    probe: it must meet padded rows as wide as its group's)."""
     V, b = sim.fed.local_rounds, sim.fed.batch_size
-    v_mask = np.zeros(V_env, np.float32)
-    v_mask[:V] = 1.0
     s_mask = np.zeros(B_env, np.float32)
     s_mask[:b] = 1.0
-    return {"v_mask": v_mask, "sample_mask": s_mask,
+    return {"v_mask": np.arange(V_env) < V,
+            "rows": np.int64(B_env if forced else b),
+            "sample_mask": s_mask,
             "n_samples": np.float32(b), "v_count": np.float32(V)}
+
+
+# The envelope's schedule (mesh_rounds.envelope_schedule) and its steps'
+# row counts are host data; the masks the steps read go to the device.
+_HOST_ENV = ("v_mask", "rows")
+
+
+def _stack_order(members: List[_Member]) -> List[int]:
+    """The group's stack order: its members by V, largest first (stable),
+    so the lanes still stepping at each local step are a prefix of the
+    stack."""
+    return sorted(range(len(members)),
+                  key=lambda i: -members[i].sim.fed.local_rounds)
 
 
 def _run_group(members: List[_Member], max_rounds: int, eval_every: int,
@@ -132,33 +149,41 @@ def _run_group(members: List[_Member], max_rounds: int, eval_every: int,
                ) -> List[Tuple[SimState, SimResult]]:
     """Run one shape group as a single folded fleet over its members, on
     the simulator's one driver (`Simulator._drive`) with each member's own
-    simulator and the group's envelope. `envelope` forces the (V_env,
-    B_env) dims (the bit_check probe pads one member beyond its own
-    shapes); by default they are the group's maxima."""
+    simulator and the group's envelope. The members are stacked by V,
+    largest first (`_stack_order`), and come back in the caller's order.
+    `envelope` forces the (V_env, B_env) dims (the bit_check probe pads
+    one member beyond its own shapes, and its steps then compute B_env
+    rows); by default they are the group's maxima."""
     rep = members[0].sim
     with spans.span("fl.group.setup"):
+        order = _stack_order(members)
+        stack = [members[i] for i in order]
         if envelope is not None:
             V_env, B_env = envelope
         else:
             V_env = max(m.sim.fed.local_rounds for m in members)
             B_env = max(m.sim.fed.batch_size for m in members)
         C = rep._lanes_local  # this rank's lanes of each member when sharded
-        envs = [_member_env(m.sim, V_env, B_env) for m in members]
-        env = {k: torch.as_tensor(np.stack([e[k] for e in envs]),
-                                  device=rep.device).repeat_interleave(
-                                      C, dim=0)
+        envs = [_member_env(m.sim, V_env, B_env, envelope is not None)
+                for m in stack]
+        env = {k: np.repeat(np.stack([e[k] for e in envs]), C, axis=0)
                for k in envs[0]}
+        env.update({k: torch.as_tensor(x, device=rep.device)
+                    for k, x in env.items() if k not in _HOST_ENV})
         states = [m.state if m.state is not None else m.sim.init(m.seed)
-                  for m in members]
+                  for m in stack]
         evaluate = (rep._eval_members if rep.eval_batch_fn is not None
                     else None)
         chunk_fn = rep.build_chunk(envelope=True)
     out, histories = rep._drive(
         states, max_rounds, eval_every, target_acc, max_sim_time, evaluate,
-        sims=[m.sim for m in members], chunk_fn=chunk_fn, env=env)
-    return [(st, SimResult(history=h, params=m.sim.params(st),
-                           label=f"{m.label}[seed={m.seed}]", fed=m.sim.fed))
-            for m, st, h in zip(members, out, histories)]
+        sims=[m.sim for m in stack], chunk_fn=chunk_fn, env=env)
+    done = [None] * len(members)
+    for i, m, st, h in zip(order, stack, out, histories):
+        done[i] = (st, SimResult(history=h, params=m.sim.params(st),
+                                 label=f"{m.label}[seed={m.seed}]",
+                                 fed=m.sim.fed))
+    return done
 
 
 def _fmt(mean: float, std: float, nd: int, multi: bool) -> str:

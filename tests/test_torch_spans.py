@@ -7,8 +7,8 @@ calls) and a two-arm Study group (two one-round `_run_group` calls):
   * under `torch.profiler`, each `fl.*` host span is a range on the
     profiler's timeline with an aten op's function scope (a user-scope
     range would also be mirrored onto the card's timeline), the spans
-    are disjoint, and the counters count the calls, the rounds and the
-    bytes uploaded;
+    are disjoint, and the counters count the calls, the rounds, the
+    bytes uploaded and the Study's envelope sample-steps;
   * records and final params are bit-identical with the profiler on and
     off;
   * on the card, no span shows on the card's timeline, and the round's
@@ -109,6 +109,12 @@ def _run_study(device):
 
 RUN = {"sampled": _run_sampled, "study": _run_study}
 ROUNDS = {"sampled": CALLS * SAMPLED_ROUNDS, "study": CALLS}
+# The Study group's envelope counters over its calls: B (b 2, V 6) stacked
+# before A (b 4, V 1), 3 lanes each; step 0 steps 6 lanes x 4 rows, steps
+# 1-5 B's 3 lanes x 2 rows, of 6 lanes x 6 steps x 4 rows a round.
+ENVELOPE = {"sampled": {},
+            "study": {"fl.envelope.sample_steps": CALLS * (6 * 4 + 5 * 3 * 2),
+                      "fl.envelope.full_sample_steps": CALLS * 6 * 6 * 4}}
 
 
 def _raise(*a, **k):
@@ -158,7 +164,8 @@ def test_profiler_sees_every_span_and_the_counters(runs, case):
     assert snap["device"] == {}  # no CUDA stream on the CPU
     assert snap["counters"] == {"fl.drive.calls": CALLS,
                                 "fl.drive.rounds": ROUNDS[case],
-                                "fl.drive.h2d_bytes": h2d}
+                                "fl.drive.h2d_bytes": h2d,
+                                **ENVELOPE[case]}
     for name in names:
         assert snap["spans"][name]["n"] == CALLS, name
         assert snap["spans"][name]["s"] > 0, name

@@ -18,7 +18,11 @@ alone.
     held against its runs alone);
   * grouping='exact', scenarios grouping apart, the solo fallback, the
     validation errors, table()/to_json() against the reference's,
-    checkpoint and resume, and the bit_check probe.
+    checkpoint and resume, and the bit_check probe;
+  * the envelope's live-prefix local steps against a frozen copy of the
+    padded form they replace, the group's stack order (members by V,
+    largest first, results in the caller's order), the schedule derived
+    again when a member stops, and the envelope's counters.
 
 The reference's per-round states come from its runs alone, which its own
 tests hold bit-identical to its study members.
@@ -40,10 +44,14 @@ from repro.models import cnn as j_cnn
 from repro_torch.configs.base import FedConfig as TFed
 from repro_torch.convert import to_numpy, to_torch
 from repro_torch.federated import compression as t_comp
+from repro_torch.federated import mesh_rounds
 from repro_torch.federated import study as t_study
 from repro_torch.federated.experiment import ExperimentSpec as TSpec
 from repro_torch.models import cnn as t_cnn
-from repro_torch.utils.tree import leaves
+from repro_torch.optim.api import apply_updates
+from repro_torch.optim.sgd import sgd
+from repro_torch.utils import spans
+from repro_torch.utils.tree import leaves, tree_map
 
 LOSS_RTOL = 1e-5
 PARAM_ATOL = 5e-4
@@ -570,3 +578,243 @@ def test_bit_check_raises_when_the_padding_is_not_inert():
         study.run(sims=sims)
     assert study.replace(bit_check=False).run(sims=sims).groups == (
         ("A", "B"),)
+
+
+# -- the envelope's live-prefix local steps ---------------------------------------------
+
+
+def _padded_local_steps(value_and_grad, opt):
+    """The envelope's local steps before the live-prefix schedule, frozen
+    as the oracle: every step on every lane at B_env rows, a dead step's
+    writes dropped with torch.where over the whole stack."""
+
+    def run(params, opt_state, batches, env):
+        total = 0.0
+        for v in range(env["v_mask"].shape[1]):
+            grads, loss = value_and_grad(
+                params, {k: b[:, v] for k, b in batches.items()},
+                env["sample_mask"], env["n_samples"])
+            updates, new_s = opt.update(grads, opt_state, params)
+            new_p = apply_updates(params, updates)
+            valid = torch.as_tensor(env["v_mask"][:, v], dtype=torch.float32)
+            params = mesh_rounds._select_participating_state(new_p, params,
+                                                             valid)
+            opt_state = mesh_rounds._select_participating_state(
+                new_s, opt_state, valid)
+            total = total + torch.where(valid > 0, loss, 0.0)
+        return params, opt_state, total / env["v_count"]
+
+    return run
+
+
+def _envelope_stack(plans, C=2, seed=0):
+    """A stack of members with (V, b) `plans`, stacked as `_run_group`
+    stacks them, C lanes each, every lane's params its own, the momentum
+    state nonzero, and real V x b draws zero-padded to the envelope:
+    (value_and_grad, opt, params, opt_state, batches, env)."""
+    cfg = t_cnn.mnist_cnn_tiny()
+    N = C * len(plans)
+    V_env = max(V for V, _ in plans)
+    B_env = max(b for _, b in plans)
+    gen = torch.Generator().manual_seed(seed)
+    base = t_cnn.init_cnn(cfg, seed, torch.device("cpu"))
+    params = tree_map(lambda x: x[None] + 0.01 * torch.randn(
+        (N,) + x.shape, generator=gen), base)
+    opt = sgd(0.05, momentum=0.9)
+    opt_state = tree_map(lambda x: 0.01 * torch.randn(x.shape, generator=gen),
+                         params)
+    x = torch.zeros(N, V_env, B_env, 28, 28, 1)
+    y = torch.zeros(N, V_env, B_env, dtype=torch.int64)
+    for i, (V, b) in enumerate(plans):
+        lanes = slice(i * C, (i + 1) * C)
+        x[lanes, :V, :b] = torch.rand(C, V, b, 28, 28, 1, generator=gen)
+        y[lanes, :V, :b] = torch.randint(0, 10, (C, V, b), generator=gen)
+    env = {"v_mask": np.repeat(
+        np.stack([np.arange(V_env) < V for V, _ in plans]), C, axis=0),
+        "rows": np.repeat(np.array([b for _, b in plans]), C),
+        "sample_mask": torch.as_tensor(np.repeat(np.stack(
+            [np.arange(B_env) < b for _, b in plans]), C, axis=0),
+            dtype=torch.float32),
+        "n_samples": torch.tensor([float(b) for _, b in plans]
+                                  ).repeat_interleave(C),
+        "v_count": torch.tensor([float(V) for V, _ in plans]
+                                ).repeat_interleave(C)}
+
+    def value_and_grad(p, batch, m=None, n=None):
+        return t_cnn.cnn_value_and_grad(cfg, p, batch, m, n)
+
+    return value_and_grad, opt, params, opt_state, {"x": x, "y": y}, env
+
+
+def _storages(tree):
+    return {x.untyped_storage().data_ptr() for x in leaves(tree)}
+
+
+def test_envelope_local_steps_against_the_padded_form():
+    """Three arms whose b does not follow their V, stacked by V, and a
+    block of lanes that never steps (V 0): the dead lanes come back bit
+    for bit, the live ones within the member contract of the padded form
+    and of each member's unpadded steps alone (whose loss divides by its
+    own V), and the output shares no storage with the input, which stays
+    as it was."""
+    plans = [(4, 3), (3, 6), (1, 2), (0, 5)]
+    C = 2
+    vg, opt, params, opt_state, batches, env = _envelope_stack(plans, C)
+    assert mesh_rounds.envelope_schedule(env["v_mask"], env["rows"]) == [
+        (6, 6), (4, 6), (4, 6), (2, 3)]
+    before = tree_map(torch.clone, (params, opt_state))
+    got_p, got_s, got_l = mesh_rounds.envelope_local_steps_fn(vg, opt)(
+        params, opt_state, batches, env)
+    want_p, want_s, want_l = _padded_local_steps(vg, opt)(
+        params, opt_state, batches, env)
+    for x, y in zip(leaves((params, opt_state)), leaves(before)):
+        assert torch.equal(x, y)
+    assert not _storages((got_p, got_s)) & _storages((params, opt_state))
+    live = slice(0, 3 * C)
+    for got, want, old in zip(leaves((got_p, got_s)), leaves((want_p, want_s)),
+                              leaves(before)):
+        assert torch.equal(got[live.stop:], old[live.stop:])
+        np.testing.assert_allclose(got[live].numpy(), want[live].numpy(),
+                                   rtol=0, atol=PARAM_ATOL)
+    np.testing.assert_allclose(got_l[live].numpy(), want_l[live].numpy(),
+                               rtol=LOSS_RTOL)
+    assert bool(torch.isnan(got_l[live.stop:]).all())  # V 0: 0 / 0
+    # Each member's V steps alone, on its unpadded batches.
+    alone = mesh_rounds.local_steps_fn(vg, opt)
+    for i, (V, b) in enumerate(plans[:3]):
+        lanes = slice(i * C, (i + 1) * C)
+        p, s, loss = alone(
+            tree_map(lambda x: x[lanes], params),
+            tree_map(lambda x: x[lanes], opt_state),
+            {k: x[lanes, :V, :b] for k, x in batches.items()})
+        np.testing.assert_allclose(got_l[lanes].numpy(), loss.numpy(),
+                                   rtol=LOSS_RTOL)
+        for x, y in zip(leaves((got_p, got_s)), leaves((p, s))):
+            np.testing.assert_allclose(x[lanes].numpy(), y.numpy(), rtol=0,
+                                       atol=PARAM_ATOL)
+
+
+def test_a_shared_plan_computes_what_the_padded_form_does():
+    """Members that share one plan step every lane at B_env rows on every
+    step: the padded form's computation, bit for bit."""
+    vg, opt, params, opt_state, batches, env = _envelope_stack(
+        [(3, 4), (3, 4)])
+    assert mesh_rounds.envelope_schedule(env["v_mask"], env["rows"]) == [
+        (4, 4)] * 3
+    got = mesh_rounds.envelope_local_steps_fn(vg, opt)(
+        params, opt_state, batches, env)
+    want = _padded_local_steps(vg, opt)(params, opt_state, batches, env)
+    for x, y in zip(leaves(got), leaves(want)):
+        assert torch.equal(x, y)
+
+
+def test_envelope_schedule_needs_the_stack_by_v():
+    v_mask = np.repeat(np.stack([np.arange(3) < V for V in (1, 3)]), 2,
+                       axis=0)
+    with pytest.raises(ValueError, match="largest first"):
+        mesh_rounds.envelope_schedule(v_mask, np.array([4, 4, 2, 2]))
+
+
+def test_run_group_returns_the_callers_order():
+    """Members given out of V order come back in the caller's order, with
+    the records and the params of the same members given by V, largest
+    first (the stack both calls run)."""
+    arms = _arms(TSpec, TFed, with_eval=True)  # A (b 4, V 2), B (8, 1), C (6, 3)
+    by_label = dict(arms)
+    runs = {}
+    for order in (("B", "A", "C"), ("C", "A", "B")):
+        sims = {label: by_label[label].build(device="cpu") for label in order}
+        group = [t_study._Member(arm=a, label=label, sim=sims[label], seed=s)
+                 for a, label in enumerate(order) for s in SEEDS]
+        assert [group[i].label for i in t_study._stack_order(group)] == [
+            label for label in ("C", "A", "B") for _ in SEEDS]
+        out = t_study._run_group(group, 3, 2, None, None)
+        assert [res.label for _, res in out] == [
+            f"{label}[seed={s}]" for label in order for s in SEEDS]
+        runs[order] = {res.label: (st, res) for st, res in out}
+    a, b = runs.values()
+    for name, (st, res) in a.items():
+        st2, res2 = b[name]
+        assert [_record(r) for r in res.history] == [
+            _record(r) for r in res2.history]
+        assert [(r.train_loss, r.test_acc) for r in res.history] == [
+            (r.train_loss, r.test_acc) for r in res2.history]
+        for x, y in zip(leaves((st.params_C, res.params)),
+                        leaves((st2.params_C, res2.params))):
+            assert torch.equal(x, y)
+
+
+def test_target_acc_stop_derives_the_schedule_again(monkeypatch):
+    """A member that reaches target_acc leaves the stack, and the chunks
+    after it step the members left on the schedule of their own plans:
+    each member against its run alone, as
+    test_target_acc_stops_members_as_runs_alone holds them."""
+    base = TSpec(fed=TFed(n_devices=3, batch_size=8, theta=0.62, lr=0.2),
+                 model="mnist_cnn_small", dataset="mnist", n_train=240,
+                 n_test=80)
+    arms = [("b8", base),
+            ("b4", base.replace(fed=dataclasses.replace(
+                base.fed, batch_size=4, theta=0.3)))]
+    schedules = []
+    real = mesh_rounds.envelope_schedule
+
+    def spy(v_mask, rows):
+        out = real(v_mask, rows)
+        schedules.append((len(rows), out))
+        return out
+
+    monkeypatch.setattr(mesh_rounds, "envelope_schedule", spy)
+    seeds, target = (0, 1, 2), 0.15
+    res = t_study.Study(arms=arms, seeds=seeds, max_rounds=8, eval_every=2,
+                        target_acc=target).run(device="cpu")
+    rounds = {(label, i): r.rounds for label, _ in arms
+              for i, r in enumerate(res[label])}
+    assert min(rounds.values()) < 8 and max(rounds.values()) == 8, rounds
+    plan = {label: (res[label][0].fed.local_rounds,
+                    res[label][0].fed.batch_size) for label, _ in arms}
+    assert plan["b8"][0] != plan["b4"][0], plan
+    C = 3
+    for r in range(8):
+        stack = sorted((plan[label] for (label, i), n in rounds.items()
+                        if n > r), key=lambda vb: -vb[0])
+        N, got = schedules[r]
+        assert N == C * len(stack)
+        assert got == [(C * sum(V > v for V, _ in stack),
+                        max([b for V, b in stack if V > v], default=0))
+                       for v in range(max(V for V, _ in plan.values()))]
+    assert len({N for N, _ in schedules}) > 1
+    for label, spec in arms:
+        sim = spec.build(device="cpu")
+        for i, seed in enumerate(seeds):
+            st, alone = sim.run(sim.init(seed), max_rounds=8, eval_every=2,
+                                target_acc=target)
+            _assert_contract(res[label][i], alone, res.states[label][i], st)
+
+
+@pytest.mark.parametrize("arms,steps,skipped", [
+    # A (b 4, V 2), B (8, 1), C (6, 3), stacked C, A, B, 3 lanes each:
+    # step 0 9 lanes x 8 rows, step 1 6 x 6, step 2 3 x 6, of 9 x 3 x 8.
+    (ARMS, (9 * 8 + 6 * 6 + 3 * 6, 9 * 3 * 8), 1 - 126 / 216),
+    # One plan: nothing skipped.
+    ((("A", 4, 2), ("D", 4, 2)), (6 * 4 + 6 * 4, 6 * 2 * 4), 0.0),
+], ids=["three-plans", "one-plan"])
+def test_envelope_counters_under_a_profiler(arms, steps, skipped):
+    """fl.envelope.sample_steps and fl.envelope.full_sample_steps are the
+    schedule's host arithmetic, a round each, and only under a profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    t_arms = _arms(TSpec, TFed, arms=arms)
+    group = [t_study._Member(arm=a, label=label, sim=spec.build(device="cpu"),
+                             seed=0) for a, (label, spec) in enumerate(t_arms)]
+    rounds = 2
+    spans.reset()
+    t_study._run_group(group, rounds, rounds, None, None)
+    assert spans.snapshot()["counters"] == {}
+    with profile(activities=[ProfilerActivity.CPU]):
+        t_study._run_group(group, rounds, rounds, None, None)
+    counters = spans.snapshot()["counters"]
+    spans.reset()
+    done, full = steps
+    assert counters["fl.envelope.sample_steps"] == rounds * done
+    assert counters["fl.envelope.full_sample_steps"] == rounds * full
+    assert 1 - (counters["fl.envelope.sample_steps"]
+                / counters["fl.envelope.full_sample_steps"]) == skipped
