@@ -5,13 +5,14 @@ size, in one process:
         --controls 4
 
 For every seed, the program's first rounds (the harness's set-up, no
-window) against the float32 reference: the lower readings. For the first
-`--controls` seeds, the control (the reference in TF32) and the planted
-faults of a step that averages half of each batch (the reference with
-half its batch) and, where the members' batches differ, of a padded step
-whose loss is divided by the largest b instead of its own, each against
-the float32 reference: the upper readings; and a witness of rounding
-alone: the float32 reference from the initial model moved by one ulp.
+window) against the reference at the configuration's precision: the
+lower readings. For the first `--controls` seeds, the control (the
+reference in the model family's CONTROL mode, TF32 for the CNN) and the
+planted faults of a step that averages half of each batch (the reference
+with half its batch) and, where the members' batches differ, of a padded
+step whose loss is divided by the largest b instead of its own, each
+against the reference: the upper readings; and a witness of rounding
+alone: the reference from the initial model moved by one ulp.
 A state left unchanged reads 1 on the step gaps and needs no run. One
 JSON line a reading, then the largest lower and the least upper reading
 of each number.
@@ -36,21 +37,20 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     import torch
-    from fedbench.harness import cell, manifest, program
-    from fedbench.reference import clock
+    from fedbench.harness import cell, manifest
     bench = manifest.benchmark()
     w = manifest.workload(bench, args.workload)
     cfg = manifest.config(bench, w["config"])
     traffic = manifest.traffic(w["traffic"])
     kind = manifest.kind(traffic["kind"])
+    family = manifest.family(cfg["family"])
     device = torch.device(args.device)
     cuda = device.type == "cuda"
     worst = {}
     least = {}
     for j, seed in enumerate(int(s) for s in args.seeds.split(",")):
         base = cell.seed_base(seed)
-        init = program.init_params(clock.param_shapes(cfg["model"]), base,
-                                   device)
+        init = family.init_params(cfg, base, device)
         t = time.perf_counter()
         run = kind.Program(cfg, traffic, base, device, init)
         followed = cell.first_rounds(run, init, traffic)
@@ -83,7 +83,7 @@ def main(argv=None) -> int:
             continue
         nudged = {k: torch.nextafter(v, torch.full_like(v, float("inf")))
                   for k, v in init.items()}
-        runs = [("control_tf32", {"mode": "tf32"}),
+        runs = [(f"control_{family.CONTROL}", {"mode": family.CONTROL}),
                 ("fault_half_batch", {"half_batch": True}),
                 ("witness_ulp", {"init": nudged})]
         if len({m.b for m in members}) > 1:

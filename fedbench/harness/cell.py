@@ -24,8 +24,8 @@ import time
 
 import torch
 
-from fedbench.harness import manifest, program, trace as tracing, yardstick
-from fedbench.reference import clock, fl
+from fedbench.harness import manifest, trace as tracing, yardstick
+from fedbench.reference.rounds import Trace, norms
 
 # Leaves whose reference change is under this share of the median leaf's
 # move by round-off alone and are not compared.
@@ -72,18 +72,24 @@ def member_readings(run, ref) -> dict:
 
 
 def readings(runs: list, ref: list, members: list) -> dict:
-    """The numbers that compare followed runs [fl.Trace] with the
+    """The numbers that compare followed runs [Trace] with the
     reference's, each the worst over the members and, where the members
     come from several arms, the worst over each arm's, prefixed
     "<label>.": a Study's arms of 15 to 30 local steps carry float32
     rounding far into their first round's loss and leaves, one of a
-    single step carries none (PERF.md)."""
+    single step carries none (PERF.md). Each number's median over the
+    members, prefixed "member_median.", is steady where a max-pool or
+    ReLU tie that rounding decides carries one member of a fleet far
+    from the rest, as the reference moved by one ulp does on the same
+    seeds (PERF.md)."""
     each = [member_readings(p, q) for p, q in zip(runs, ref)]
 
     def worst(ms, prefix=""):
         return {f"{prefix}{k}": max(m[k] for m in ms) for k in ms[0]}
 
     out = worst(each)
+    out.update({f"member_median.{k}": statistics.median(m[k] for m in each)
+                for k in each[0]})
     labels = [m.label for m in members]
     if len(set(labels)) > 1:
         for label in dict.fromkeys(labels):
@@ -95,7 +101,7 @@ def readings(runs: list, ref: list, members: list) -> dict:
 def first_rounds(run, init: dict, traffic: dict) -> list:
     """Drive `run` through its first `check_rounds` rounds by the window's
     own call (`rounds_per_call` rounds, an eval every `eval_every`), the
-    global model's change read after each call: [fl.Trace] of its
+    global model's change read after each call: [Trace] of its
     members."""
     rounds, rpc = traffic["check_rounds"], traffic["rounds_per_call"]
     if rounds % rpc:
@@ -105,27 +111,26 @@ def first_rounds(run, init: dict, traffic: dict) -> list:
         run.advance(rpc, traffic["eval_every"])
         for i in range(run.n):
             changes[i][done] = _change(run.params(i), init)
-    return [fl.Trace(losses=[float(r.train_loss) for r in run.hist[i]],
-                     changes=changes[i])
+    return [Trace(losses=[float(r.train_loss) for r in run.hist[i]],
+                  changes=changes[i])
             for i in range(run.n)]
 
 
 def _change(params: dict, init: dict) -> dict:
-    return fl.norms({k: params[k] - init[k] for k in init})
+    return norms({k: params[k] - init[k] for k in init})
 
 
-def reference(kind, cfg, traffic, seed, init, device, mode="float32",
+def reference(kind, cfg, traffic, seed, init, device, mode=None,
               half_batch=False, mean_over_envelope=False):
-    """The reference's members and their followed rounds; the last two
-    plant faults (fl.run), the second dividing each member's batch loss
-    by the largest b of the members."""
-    members, (x, y) = kind.reference_members(cfg, traffic, seed)
-    xt = torch.as_tensor(x, device=device)
-    yt = torch.as_tensor(y, dtype=torch.int64, device=device)
-    B_env = max(m.b for m in members) if mean_over_envelope else None
-    runs = [fl.run(m.member, init, xt, yt, cfg["fed"]["lr"],
-                   traffic["check_rounds"], mode, half_batch, B_env)
-            for m in members]
+    """The reference's members and their followed rounds, run by the
+    configuration's model family: at the configuration's precision, or
+    `mode` (the family's CONTROL); the last two plant faults, the second
+    dividing each member's batch loss by the largest b of the members."""
+    members, data = kind.reference_members(cfg, traffic, seed)
+    mean_over = max(m.b for m in members) if mean_over_envelope else None
+    runs = manifest.family(cfg["family"]).reference(
+        cfg, members, data, init, device, traffic["check_rounds"], mode,
+        half_batch, mean_over)
     return members, runs
 
 
@@ -158,12 +163,12 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool,
     traffic = traffic or manifest.traffic(w["traffic"])
     limits = limits or manifest.limits(cell)
     kind = manifest.kind(traffic["kind"])
+    family = manifest.family(cfg["family"])
     base = seed_base(seed)
     cuda = device.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
 
-    init = program.init_params(clock.param_shapes(cfg["model"]), base,
-                               device)
+    init = family.init_params(cfg, base, device)
     t = time.perf_counter()
     run = kind.Program(cfg, traffic, base, device, init)
     sync()
@@ -216,6 +221,7 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool,
               for k, v in limits["limits"].items()}
     ctx = {"build_s": build_s, "window_s": window_s, "member_rounds": done,
            "flops": flops, "least_s": least,
+           "peak_flops": family.peak_flops(cfg),
            "quantize_bytes": yardstick.quantize_bytes(qrows),
            "trace": tr, **extras}
     return {"correct": all(c["value"] <= c["limit"] for c in checks.values()),

@@ -1,5 +1,6 @@
 """What every traffic kind shares: a program run of S members and its
-bookkeeping (`Run`), and the reference's members of a dense population."""
+bookkeeping (`Run`), the configuration's leaf shapes from its model
+family, and the reference's members of a dense population."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -7,14 +8,20 @@ from typing import Callable, List
 
 import numpy as np
 
-from fedbench.harness import yardstick
+from fedbench.harness import manifest
 from fedbench.reference import clock, data
-from fedbench.reference.fl import Member
+from fedbench.reference.rounds import Member
 
 
 def pick(value, dataset: str):
     """A traffic parameter, given once or per dataset."""
     return value[dataset] if isinstance(value, dict) else value
+
+
+def param_shapes(cfg: dict) -> dict:
+    """{leaf: shape} of the configuration's model, as its family lays it
+    out."""
+    return manifest.family(cfg["family"]).param_shapes(cfg["model"])
 
 
 @dataclass
@@ -38,6 +45,7 @@ class Run:
 
     def __init__(self, cfg: dict, traffic: dict, sims: list, lanes: int):
         self.cfg = cfg
+        self.family = manifest.family(cfg["family"])
         self.compress = traffic["compress"]
         self.sims = sims
         self.lanes = lanes
@@ -60,17 +68,16 @@ class Run:
         """(useful flops, their least seconds, quantized rows) of one call
         of `rounds` rounds with an eval every `eval_every` and at the
         call's end (every configuration evaluates: run.py holds the
-        program's spec to it)."""
-        model = self.cfg["model"]
-        P = clock.n_params(model)
+        program's spec to it), the work as the model's family counts it."""
         rows = sum(-(-int(np.prod(s)) // 1024)
-                   for s in clock.param_shapes(model).values())
+                   for s in self.family.param_shapes(
+                       self.cfg["model"]).values())
         evals = -(-rounds // min(eval_every, rounds))
-        ef, el = yardstick.member_eval(model, self.cfg["n_test"])
+        ef, el = self.family.member_eval(self.cfg)
         flops = least = 0.0
         qrows = 0
         for b, V in self.plans():
-            f, t = yardstick.member_round(model, P, b, V, self.lanes)
+            f, t = self.family.member_round(self.cfg, b, V, self.lanes)
             flops += f * rounds + ef * evals
             least += t * rounds + el * evals
             if self.compress:
@@ -86,6 +93,7 @@ def dense_members(cfg: dict, seed: int, plans, compress: bool,
     """Reference members over the Dirichlet partition of M clients drawn at
     `seed`; `plans` [(label, b, V, run seed)]. Returns (members, (x, y))."""
     x, y = data.make_dataset(cfg["dataset"], cfg["n_train"], seed)
+    shapes = param_shapes(cfg)
     M = cfg["fed"]["n_devices"]
     parts = data.partition_dirichlet(y, M, cfg["alpha"], seed)
     sizes = np.array([len(p) for p in parts], np.int64)
@@ -96,6 +104,7 @@ def dense_members(cfg: dict, seed: int, plans, compress: bool,
                         sizes=sizes)
         out.append(RefMember(
             label, b, V, member,
-            lambda n, b=b, V=V: clock.records(cfg, M, b, V, compress, n,
+            lambda n, b=b, V=V: clock.records(cfg, shapes, M, b, V,
+                                              compress, n,
                                               scenario=scenario)))
     return out, (x, y)

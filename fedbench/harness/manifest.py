@@ -1,16 +1,23 @@
 """Finding a cell's parts by name: the manifest (BENCHMARK.json at the root
-of the checkout), a configuration's file, a traffic mix's file, a cell's
-limits, a traffic kind's module and a per-layer metric's reader. Nothing
-here names a cell, a configuration or a metric: adding one is adding
-files."""
+of the checkout), a configuration's file, its model family's module, a
+traffic mix's file, a cell's limits, a traffic kind's module and a
+per-layer metric's reader. Nothing here names a cell, a configuration, a
+family or a metric: adding one is adding files."""
 from __future__ import annotations
 
+import functools
 import importlib.util
 import json
 from pathlib import Path
 
 BENCH = Path(__file__).resolve().parents[1]
 ROOT = BENCH.parent
+
+# What a model family's module gives the harness (families/cnn.py says
+# what each is).
+FAMILY = ("registry_differences", "param_shapes", "init_params",
+          "reference", "CONTROL", "member_round", "member_eval",
+          "peak_flops")
 
 
 def benchmark() -> dict:
@@ -30,7 +37,12 @@ def workload(bench: dict, name: str) -> dict:
 
 def config(bench: dict, name: str) -> dict:
     entry = _one(bench["configs"], name, "configuration")
-    return json.loads((ROOT / entry["file"]).read_text())
+    cfg = json.loads((ROOT / entry["file"]).read_text())
+    if "family" not in cfg:
+        raise SystemExit(f"configuration {name!r} names no model family: "
+                         f"{entry['file']} needs a \"family\" key, the "
+                         f"name of a module under fedbench/families/")
+    return cfg
 
 
 def traffic(name: str) -> dict:
@@ -46,6 +58,21 @@ def _module(path: Path, name: str):
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+@functools.lru_cache(maxsize=None)
+def _family_at(path: Path, name: str):
+    return _module(path, name)
+
+
+def family(name: str):
+    """A model family's module: fedbench/families/<name>.py, giving the
+    names in FAMILY. Loaded once a process: the harness asks for it at
+    every step, and a module executed again each time leaves the garbage
+    collector at another phase when the program starts, which moves the
+    Study cells' peak memory by up to 5% (PERF.md §7)."""
+    return _family_at(BENCH / "families" / f"{name}.py",
+                      f"fedbench_family_{name}")
 
 
 def kind(name: str):

@@ -9,7 +9,7 @@ follows).
 from __future__ import annotations
 
 from fedbench.harness import program
-from fedbench.harness.common import Run, dense_members
+from fedbench.harness.common import Run, dense_members, param_shapes
 
 
 def run_seeds(traffic: dict, seed: int):
@@ -37,7 +37,8 @@ class Program(Run):
 def reference_members(cfg: dict, traffic: dict, seed: int):
     from fedbench.reference import clock
     compress = traffic["compress"]
-    b, V = clock.plan(cfg, cfg["fed"]["n_devices"], compress)
+    b, V = clock.plan(cfg, param_shapes(cfg), cfg["fed"]["n_devices"],
+                      compress)
     return dense_members(cfg, seed, [("run", b, V, s) for s in
                                      run_seeds(traffic, seed)],
                          compress, scenario=False)

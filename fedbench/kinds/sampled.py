@@ -14,7 +14,7 @@ import time
 import numpy as np
 
 from fedbench.harness import program
-from fedbench.harness.common import RefMember, Run
+from fedbench.harness.common import RefMember, Run, param_shapes
 
 
 class Program(Run):
@@ -59,10 +59,11 @@ def host_draws(sim, state, n=3, reps=5):
 
 def reference_members(cfg: dict, traffic: dict, seed: int):
     from fedbench.reference import clock, data
-    from fedbench.reference.fl import Member
+    from fedbench.reference.rounds import Member
     compress = traffic["compress"]
     M, K = traffic["population_M"], traffic["cohort_K"]
-    b, V = clock.plan(cfg, M, compress, K=K)
+    shapes = param_shapes(cfg)
+    b, V = clock.plan(cfg, shapes, M, compress, K=K)
     x, y = data.make_dataset(cfg["dataset"], cfg["n_train"], seed)
     n = cfg["n_train"]
     size = data.virtual_shard_size(n)
@@ -73,6 +74,7 @@ def reference_members(cfg: dict, traffic: dict, seed: int):
     def records(rounds):
         stream = data.CohortStream(M, K, seed + 1)
         cohorts = [stream.draw() for _ in range(rounds)]
-        return clock.records(cfg, M, b, V, compress, rounds, cohorts=cohorts)
+        return clock.records(cfg, shapes, M, b, V, compress, rounds,
+                             cohorts=cohorts)
 
     return [RefMember("run", b, V, member, records)], (x, y)

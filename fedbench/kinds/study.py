@@ -18,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 
 from fedbench.harness import program
-from fedbench.harness.common import Run, dense_members, pick
+from fedbench.harness.common import Run, dense_members, param_shapes, pick
 
 
 def arms(cfg: dict, traffic: dict):
@@ -92,9 +92,10 @@ def reference_members(cfg: dict, traffic: dict, seed: int):
     from fedbench.reference import clock
     compress = traffic["compress"]
     M = cfg["fed"]["n_devices"]
+    shapes = param_shapes(cfg)
     out = []
     for label, fixed in arms(cfg, traffic):
-        b, V = (clock.plan(cfg, M, compress) if fixed is None
+        b, V = (clock.plan(cfg, shapes, M, compress) if fixed is None
                 else (fixed[0], clock.fixed_V(fixed[1], cfg["fed"]["nu"])))
         out += [(label, b, V, s) for s in run_seeds(traffic, seed)]
     return dense_members(cfg, seed, out, compress,

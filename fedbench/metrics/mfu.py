@@ -1,10 +1,10 @@
-"""The whole window's share of the card's float32 peak: the useful flops of
-the window's member-rounds, counted from the CNN's shapes
-(harness/yardstick.py), over the window's wall seconds at 67 TFLOP/s."""
-from fedbench.harness import yardstick
+"""The whole window's share of the card's peak at the model's dtype: the
+useful flops of the window's member-rounds, as the configuration's model
+family counts them (fedbench/families/), over the window's wall seconds
+at the family's peak (67 TFLOP/s for the float32 CNN), both in ctx."""
 
 
 def read(ctx):
     if not ctx["flops"]:
         return None
-    return 100.0 * ctx["flops"] / (ctx["window_s"] * yardstick.PEAK_FP32_FLOPS)
+    return 100.0 * ctx["flops"] / (ctx["window_s"] * ctx["peak_flops"])

@@ -8,37 +8,26 @@ Copied from repro_torch as it stood when the benchmark was written:
   compressed_bits                                federated/compression.py
 The arrays keep the program's shapes (one entry a client of the
 population), so numpy takes the same code paths and the float64 clock
-agrees to the bit.
+agrees to the bit. The model enters only by its leaf shapes (`shapes`,
+{leaf: shape}), which its family gives (fedbench/families/).
 """
 from __future__ import annotations
 
 import numpy as np
 
 
-def n_params(model: dict) -> int:
-    return sum(int(np.prod(s)) for s in param_shapes(model).values())
+def n_params(shapes: dict) -> int:
+    return sum(int(np.prod(s)) for s in shapes.values())
 
 
-def param_shapes(model: dict) -> dict:
-    """Leaf shapes in the program's layout (HWIO filters, (in, out) dense
-    weights), keyed in sorted leaf order."""
-    (h, w), cin = model["input_hw"], model["in_channels"]
-    c1, c2 = model["conv_channels"]
-    k, fc, nc = model["kernel"], model["fc_dim"], model["n_classes"]
-    flat = (h // 4) * (w // 4) * c2
-    return {"conv1.b": (c1,), "conv1.w": (k, k, cin, c1),
-            "conv2.b": (c2,), "conv2.w": (k, k, c1, c2),
-            "fc1.b": (fc,), "fc1.w": (flat, fc),
-            "fc2.b": (nc,), "fc2.w": (fc, nc)}
-
-
-def update_bits(model: dict, compress: bool) -> float:
-    """Wire bits of one client update: int8 codes and one float32 scale a
-    1024-row when compressed, else the float32 parameters."""
+def update_bits(shapes: dict, compress: bool) -> float:
+    """Wire bits of one client update of leaves `shapes` (the model
+    family's param_shapes): int8 codes and one float32 scale a 1024-row
+    when compressed, else the float32 parameters."""
     if not compress:
-        return float(n_params(model) * 4 * 8.0)
+        return float(n_params(shapes) * 4 * 8.0)
     total = 0
-    for shape in param_shapes(model).values():
+    for shape in shapes.values():
         n = int(np.prod(shape))
         total += n * 8 + int(np.ceil(n / 1024)) * 32
     return float(total)
@@ -79,12 +68,12 @@ def _quantize_batch(b: float) -> int:
     return int(lo if b / lo <= hi / b else hi)
 
 
-def plan(cfg: dict, M: int, compress: bool, K=None):
+def plan(cfg: dict, shapes: dict, M: int, compress: bool, K=None):
     """(b, V) the DEFL arm runs: the closed form over the population of M
     (Eq. 12's M being the cohort's K when sampled), b quantized to a power
     of two and capped at the configuration's batch_cap."""
     fed = cfg["fed"]
-    bits = n_params(cfg["model"]) * 4 * 8.0
+    bits = n_params(shapes) * 4 * 8.0
     if compress:
         bits = bits / 4.0
     G, f, p, h = population(cfg, M)
@@ -108,14 +97,14 @@ def fixed_V(V: int, nu: float) -> int:
     return local_rounds(float(np.exp(-V / nu)), nu)
 
 
-def records(cfg: dict, M: int, b: int, V: int, compress: bool, rounds: int,
-            cohorts=None, scenario: bool = True):
+def records(cfg: dict, shapes: dict, M: int, b: int, V: int, compress: bool,
+            rounds: int, cohorts=None, scenario: bool = True):
     """The Eq. 8 records of `rounds` rounds from round 1 and clock 0:
     [(round, sim_time, T_cm, T_cp, uplink_bits, n_participants)].
     `cohorts` (rounds, K) restricts each round to its cohort's clients;
     without a scenario n_participants is None (every client)."""
     G, f, p, h = population(cfg, M)
-    bits = update_bits(cfg["model"], compress)
+    bits = update_bits(shapes, compress)
     t_cm = uplink_times(bits, cfg["wireless"], p, h)
     t_cp = compute_times(b, G, f)
     out, sim_time = [], 0.0

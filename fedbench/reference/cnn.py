@@ -3,8 +3,9 @@ two 5x5 'SAME' convolutions (32, 64 channels), each followed by ReLU and
 a 2x2 max pool, a 512-unit dense layer with ReLU and a softmax head, the
 mean cross-entropy as the loss. Gradients by autograd.
 
-Parameters are a flat dict in the program's layout (see clock.param_shapes):
-NHWC images, HWIO filters, fc1 over the NHWC flatten of the last pool.
+Parameters are a flat dict in the program's layout (the family's
+param_shapes, fedbench/families/cnn.py): NHWC images, HWIO filters, fc1
+over the NHWC flatten of the last pool.
 `precision="tf32"` computes every convolution and matrix product in
 TF32, the control of the comparison: on the card by PyTorch's TF32 flags,
 on the CPU by rounding each product's operands to TF32's 10-bit mantissa.

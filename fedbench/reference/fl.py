@@ -1,6 +1,7 @@
-"""Plain federated rounds: each member's clients take V SGD steps of batch b
-from the global model, their updates are averaged by data size (FedAvg),
-through the int8 stochastic-rounding round trip when compressed.
+"""Plain federated rounds of the CNN (cnn.py) on images: each member's
+clients take V SGD steps of batch b from the global model, their updates
+are averaged by data size (FedAvg), through the int8 stochastic-rounding
+round trip when compressed.
 
 No code of the program: the batch indices come from the frozen copies of
 data.py, the quantizer noise from a torch generator seeded with the
@@ -9,8 +10,7 @@ every lane's rows a round), the quantizer from the frozen copy below.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional
+from typing import Optional
 
 import numpy as np
 import torch
@@ -18,33 +18,9 @@ from torch.func import grad_and_value, vmap
 
 from . import cnn
 from .data import BatchIterator, CohortStream
+from .rounds import Member, Trace, norms
 
 ROW = 1024
-
-
-@dataclass
-class Member:
-    """One run of a study, fleet or sampled cell. `client_rows(m)` gives
-    client m's dataset rows and `sizes` its FedAvg weight; `cohort` (M, K)
-    draws K of M clients a round, else every client runs."""
-
-    b: int
-    V: int
-    seed: int
-    compress: bool
-    client_rows: Callable[[int], np.ndarray]
-    sizes: np.ndarray
-    cohort: Optional[tuple] = None
-
-
-@dataclass
-class Trace:
-    """A member's first rounds: each round's loss, and each leaf's change
-    norm from the initial model, {round: {leaf: norm}}, after the rounds
-    it was read at (the reference: every round)."""
-
-    losses: List[float]
-    changes: Dict[int, dict]
 
 
 def quantize(x: torch.Tensor, u: torch.Tensor):
@@ -82,11 +58,6 @@ def _int8_roundtrip(deltas: dict, u: torch.Tensor) -> dict:
         out[k] = flat[:, at:at + n].reshape(deltas[k].shape)
         at += -(-n // ROW) * ROW
     return out
-
-
-def norms(delta: dict) -> dict:
-    return {k: float(torch.linalg.vector_norm(v.double())) for k, v in
-            delta.items()}
 
 
 def run(member: Member, init: dict, x: torch.Tensor, y: torch.Tensor,

@@ -38,7 +38,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     import torch
-    from fedbench.harness import cell, manifest, program
+    from fedbench.harness import cell, manifest
     bench = manifest.benchmark()
     w = manifest.workload(bench, args.workload)
     if not torch.cuda.is_available() or \
@@ -46,7 +46,8 @@ def main(argv=None) -> int:
         print(f"fedbench: the cell needs {w['chips']} CUDA card(s); "
               f"found {torch.cuda.device_count()}", file=sys.stderr)
         return 2
-    diffs = program.registry_differences(manifest.config(bench, w["config"]))
+    cfg = manifest.config(bench, w["config"])
+    diffs = manifest.family(cfg["family"]).registry_differences(cfg)
     if diffs:
         print(f"fedbench: the program's spec no longer runs the "
               f"configuration's file: {diffs}", file=sys.stderr)

@@ -9,8 +9,7 @@ from it by the cells' limits."""
 import pytest
 import torch
 
-from fedbench.harness import cell, manifest, program
-from fedbench.reference import clock
+from fedbench.harness import cell, manifest
 from fedbench.tests.small import small
 
 CELLS = ["mnist_paper.study_fig2", "mnist_paper.fleet16_int8",
@@ -23,7 +22,7 @@ def _followed(cell_name, calls=1, seed=2 ** 31 + 3):
     traffic["check_rounds"] = calls * traffic["rounds_per_call"]
     kind = manifest.kind(traffic["kind"])
     base = cell.seed_base(seed)
-    init = program.init_params(clock.param_shapes(cfg["model"]), base, DEV)
+    init = manifest.family(cfg["family"]).init_params(cfg, base, DEV)
     run = kind.Program(cfg, traffic, base, DEV, init)
     followed = cell.first_rounds(run, init, traffic)
     members, ref = cell.reference(kind, cfg, traffic, base, init, DEV)
@@ -71,3 +70,26 @@ def test_control_and_half_batch_fail_the_limits(cell_name):
         got = cell.readings(other, ref, members)
         assert any(got[k] > v for k, v in limits["limits"].items()
                    if k in got), (kw, got)
+
+
+def test_member_median_holds_the_fleet_and_not_its_one_far_member():
+    """The worst member's gap swings with one member that a rounding tie
+    carries far; the median over the members does not, and a fault that
+    moves every member moves both."""
+    from types import SimpleNamespace
+
+    from fedbench.reference.rounds import Trace
+
+    change = {10: {"a": 1.0, "b": 2.0}}
+    ref = [Trace(losses=[1.0, 0.5], changes=change) for _ in range(5)]
+    runs = [Trace(losses=[1.0 + 1e-7, 0.5], changes=change)
+            for _ in range(4)]
+    runs.append(Trace(losses=[1.0 + 4e-4, 0.5], changes=change))
+    members = [SimpleNamespace(label="run")] * 5
+    got = cell.readings(runs, ref, members)
+    assert abs(got["loss_gap_r1"] - 4e-4) < 1e-9
+    assert abs(got["member_median.loss_gap_r1"] - 1e-7) < 1e-12
+    every = [Trace(losses=[1.0 + 3e-4, 0.5], changes=change)
+             for _ in range(5)]
+    got = cell.readings(every, ref, members)
+    assert abs(got["member_median.loss_gap_r1"] - 3e-4) < 1e-9

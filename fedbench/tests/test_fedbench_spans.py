@@ -9,8 +9,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from fedbench.harness import cell, manifest, program
-from fedbench.reference import clock
+from fedbench.harness import cell, manifest
 from fedbench.tests.small import small
 from repro_torch.utils import spans
 
@@ -71,8 +70,7 @@ def test_a_small_cell_under_a_cpu_profiler(cell_name):
     kind = manifest.kind(traffic["kind"])
     seed = cell.seed_base(2 ** 31 + 5)
     device = torch.device("cpu")
-    init = program.init_params(clock.param_shapes(cfg["model"]), seed,
-                               device)
+    init = manifest.family(cfg["family"]).init_params(cfg, seed, device)
     run = kind.Program(cfg, traffic, seed, device, init)
     spans.reset()
     with profile(activities=[ProfilerActivity.CPU]):
